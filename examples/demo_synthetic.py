@@ -1,4 +1,4 @@
-"""End-to-end demo on synthetic data (runs on CPU or TPU, no fixtures).
+"""End-to-end demo on synthetic data (runs on CPU or GPU, no fixtures).
 
 Builds a dense multi-shell protocol and a smooth fingerprint dictionary,
 synthesizes a small noisy volume of 2-fascicle + CSF voxels, fits it with

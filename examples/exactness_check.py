@@ -3,7 +3,7 @@
 Plants noiseless atom mixtures from a UKBB-scale correlated dictionary
 (986 zeppelin atoms — the atom count of the reference's UK-Biobank subject
 fixture, tests/integration/fixtures/1000521_dictionary_hcp_deltas.mat) and
-checks that the TPU production path (double-float candidate scan + on-device
+checks that the GPU production path (double-float candidate scan + on-device
 double-float finalize, models/fit.run_bucket_fast) recovers them:
 
 * 2 fascicles + CSF:  both fascicle atom IDs must match the planted ones

@@ -1,7 +1,6 @@
 """Whole-brain-scale validation: a >=100k-voxel mixed-configuration volume
-through MFModel.fit end to end on one chip, with measured (not assumed)
-bucket mix, wall-clock, and the v5e-8 extrapolation against the <60 s
-whole-brain north star (BASELINE.md).
+through MFModel.fit end to end on one GPU, with the measured bucket mix
+and wall-clock against the <60 s whole-brain north star (BASELINE.md).
 
 Configuration mix modeled on a real UKBB-style fit: most white-matter
 voxels are 2-fascicle+CSF, a band gets the EAR compartment, plus
@@ -81,36 +80,29 @@ def main():
     Y = np.zeros((N_VOX, S))
 
     # synthesize signals in device chunks via the rotation kernel
-    # (the rotated block is B x 2 x S x N — keep it well under HBM);
-    # cache the result on disk so repeat measurements skip straight to fit
-    cache = "/tmp/wb_cache_%d.npz" % N_VOX
-    if os.path.exists(cache):
-        z = np.load(cache)
-        Y, peaks = z["Y"], z["peaks"]
-    else:
-        chunk = 256
-        gdir_d = jnp.asarray(plan.gdir, dtype=xs.dtype)
-        lo_d, hi_d = jnp.asarray(plan.shell_lo), jnp.asarray(plan.shell_hi)
-        wG_d = jnp.asarray(plan.wG, dtype=xs.dtype)
-        kk = np.arange(2)[None, :]
-        w_f = nus[:, :2] * (kk < K[:, None])          # fascicle weights
-        w_c = np.take_along_axis(nus, K[:, None], 1)[:, 0] * csf
-        w_e = np.take_along_axis(nus, (K + csf)[:, None], 1)[:, 0] * ear
-        peaks[:, :3] = np.where((K >= 1)[:, None], dirs[:, 0], 0.0)
-        peaks[:, 3:] = np.where((K >= 2)[:, None], dirs[:, 1], 0.0)
-        for st in range(0, N_VOX, chunk):
-            en = min(st + chunk, N_VOX)
-            D = mfi.eval_rotation_batch(
-                xs, ys_t, cnt, gdir_d, lo_d, hi_d, wG_d,
-                jnp.asarray(dirs[st:en], dtype=xs.dtype))
-            cols = np.asarray(jnp.take_along_axis(
-                D, jnp.asarray(ids[st:en])[:, :, None, None], axis=3)
-                [..., 0])
-            acc = np.einsum("vk,vks->vs", w_f[st:en], cols)
-            acc += w_c[st:en, None] * sig_csf[None]
-            acc += w_e[st:en, None] * sig_ear[:, eids[st:en]].T
-            Y[st:en] = 400 * acc
-        np.savez(cache, Y=Y, peaks=peaks)
+    # (the rotated block is B x 2 x S x N — keep it well under device memory)
+    chunk = 256
+    gdir_d = jnp.asarray(plan.gdir, dtype=xs.dtype)
+    lo_d, hi_d = jnp.asarray(plan.shell_lo), jnp.asarray(plan.shell_hi)
+    wG_d = jnp.asarray(plan.wG, dtype=xs.dtype)
+    kk = np.arange(2)[None, :]
+    w_f = nus[:, :2] * (kk < K[:, None])          # fascicle weights
+    w_c = np.take_along_axis(nus, K[:, None], 1)[:, 0] * csf
+    w_e = np.take_along_axis(nus, (K + csf)[:, None], 1)[:, 0] * ear
+    peaks[:, :3] = np.where((K >= 1)[:, None], dirs[:, 0], 0.0)
+    peaks[:, 3:] = np.where((K >= 2)[:, None], dirs[:, 1], 0.0)
+    for st in range(0, N_VOX, chunk):
+        en = min(st + chunk, N_VOX)
+        D = mfi.eval_rotation_batch(
+            xs, ys_t, cnt, gdir_d, lo_d, hi_d, wG_d,
+            jnp.asarray(dirs[st:en], dtype=xs.dtype))
+        cols = np.asarray(jnp.take_along_axis(
+            D, jnp.asarray(ids[st:en])[:, :, None, None], axis=3)
+            [..., 0])
+        acc = np.einsum("vk,vks->vs", w_f[st:en], cols)
+        acc += w_c[st:en, None] * sig_csf[None]
+        acc += w_e[st:en, None] * sig_ear[:, eids[st:en]].T
+        Y[st:en] = 400 * acc
     t_synth = time.time() - t0
     print("synthesis: %.1f s" % t_synth)
 
@@ -127,10 +119,9 @@ def main():
     mix_measured = Counter(zip(K.tolist(), csf.tolist(), ear.tolist()))
     act = N_VOX - mix_measured.get((0, 0, 0), 0)
     print("bucket mix:", dict(mix_measured))
-    print("fit wall-clock: %.1f s  (%d voxels -> %.0f vox/s/chip)"
+    print("fit wall-clock: %.1f s  (%d voxels -> %.0f vox/s)  "
+          "[north star: < 60 s whole brain, BASELINE.md]"
           % (wall, act, act / wall))
-    print("v5e-8 extrapolation (linear over 8 chips): %.1f s  "
-          "[north star: < 60 s whole brain, BASELINE.md]" % (wall / 8))
 
     in_m = mask > 0
     r2 = f.R2[in_m]

@@ -1,6 +1,6 @@
-"""Microstructure Fingerprinting, TPU-native (JAX / XLA / Pallas / pjit).
+"""Microstructure Fingerprinting on an accelerator (JAX / XLA).
 
-A from-scratch TPU-first framework with the capabilities of
+A from-scratch JAX framework with the capabilities of
 rensonnetg/microstructure_fingerprinting: estimation of white-matter
 microstructure from DW-MRI by exhaustive combinatorial NNLS against a
 dictionary of Monte-Carlo-simulated fingerprints.
@@ -20,34 +20,37 @@ import os as _os
 
 import jax as _jax
 
+#: the persistent compilation cache's directory when
+#: JAX_COMPILATION_CACHE_DIR is not set: one fixed path inside the checkout
+_CHECKOUT_CACHE = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def compile_cache_dir():
+    """Directory of the persistent XLA compilation cache:
+    JAX_COMPILATION_CACHE_DIR when it is set, else ``.jax_cache`` at the
+    root of the checkout."""
+    return _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _CHECKOUT_CACHE
+
 
 def enable_compile_cache():
     """Persistent XLA compilation cache (cold-start amortization).
 
-    A whole-brain fit compiles one program per voxel configuration
-    (~30-200 s each on remote-attached accelerators); caching the compiled
-    executables on disk makes every later process start warm. Called lazily
-    on the first MFModel construction — accelerator backends only (XLA:CPU
-    AOT reloads are machine-feature sensitive). Opt out with
-    MF_TPU_NO_COMPILE_CACHE=1 or by pre-setting jax_compilation_cache_dir.
+    A fit compiles one set of programs per voxel configuration; caching
+    the executables on disk makes every later process start warm. Called
+    on each MFModel construction, for accelerator backends only (XLA:CPU
+    executables are machine-feature sensitive). JAX itself reads
+    JAX_COMPILATION_CACHE_DIR; a directory already configured that way,
+    or by the caller, is left as it is.
     """
-    if _os.environ.get("MF_TPU_NO_COMPILE_CACHE"):
+    if _jax.default_backend() == "cpu":
         return
-    try:
-        if _jax.default_backend() == "cpu":
-            return
-        if _jax.config.jax_compilation_cache_dir:
-            return  # user already configured one
-        path = _os.path.join(
-            _os.path.expanduser("~"), ".cache",
-            "microstructure_fingerprinting_tpu", "xla_cache")
-        _os.makedirs(path, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", path)
-        # cache everything, including fast-compiling programs
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-        _jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # cache is an optimization, never a requirement
-        pass
+    if not _jax.config.jax_compilation_cache_dir:
+        _jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
+    # cache everything, including fast-compiling programs
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    _jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 
 
 from . import ops, utils  # noqa: F401,E402

@@ -32,7 +32,7 @@ def _mask_arg(v):
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="microstructure_fingerprinting_tpu",
-        description="TPU-native microstructure fingerprinting")
+        description="Microstructure fingerprinting on an accelerator")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     f = sub.add_parser("fit", help="fit the fingerprinting model")
@@ -60,10 +60,10 @@ def _build_parser():
     f.add_argument("--parallel", action="store_true",
                    help="shard voxel batches over all devices")
     f.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "fast", "pallas"],
-                   help="device scan: 'fast' = double-float fast path "
-                        "('pallas' is a legacy alias), 'xla' = general "
-                        "tiled scan, 'auto' picks per configuration")
+                   choices=["auto", "xla", "fast"],
+                   help="device scan: 'fast' = double-float fast path, "
+                        "'xla' = general tiled scan, 'auto' picks per "
+                        "configuration")
     f.add_argument("--batch-size", type=int, default=None)
     f.add_argument("--topm", type=int, default=16,
                    help="float64 refinement candidate budget")

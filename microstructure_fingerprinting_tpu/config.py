@@ -26,22 +26,13 @@ class SolverConfig:
     tile_n1: int = 128             # candidate-grid tile (atoms)
     refine_noise: float = 4e-6     # f32 scan normalized-residual resolution
     topm: int = 16                 # refinement candidate budget
-    segments: int = 8              # per-row i2 segments in the Pallas scan
     rescore_pool: int = 128        # pool size for direct-residual re-ranking
     direct_noise: float = 4e-9     # direct-residual normalized resolution
-    # two-pass scan row budgets (ops/f32scan): the f32 interval row pass
+    # two-pass scan row budget (ops/f32scan): the f32 interval row pass
     # bounds hold the winner's row inside the top-R in-band rows; R covers
     # the measured band tails (exact-Gram radii) with <1% overflow for the
-    # 2-fascicle+CSF grid and a few % for the EAR grid, whose
-    # ear-dominant voxels tie more rows
+    # 2-fascicle+CSF grid
     twopass_rows: int = 128
-    twopass_rows_ear: int = 256
-    # EAR 4-block two-pass mode: "auto" enables it on the TPU backend
-    # (where the fused Pallas row pass exists), "always" forces it on any
-    # backend (CI coverage of the production composition via the XLA row
-    # pass), "off" uses the one-pass df4 scan
-    twopass_ear_mode: str = "auto"
-
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:

@@ -3,7 +3,7 @@
 Reference users do ``from microstructure_fingerprinting import mf_utils as
 mfu`` and call a flat catalogue of solvers, DW-MRI ops, simulators, plotting
 and I/O helpers (reference mf_utils.py:73-102 name registry). This module
-re-exports the TPU-native implementations under the same names so that
+re-exports this package's implementations under the same names so that
 existing scripts port with an import change only.
 """
 

@@ -4,7 +4,7 @@ Intracellular PGSE / double-diffusion-encoding (DDE) signal attenuation in
 simple geometries via the matrix formalism of Grebenkov (Conc. Magn. Reson.
 A 32:277-301, 2008). Behavioral equivalent of the reference mcf.py
 (MCF_PGSE mcf.py:237-426, MCF_DDE mcf.py:84-234, import_DDE_scheme
-mcf.py:24-81), with two TPU-first differences:
+mcf.py:24-81), with two differences:
 
   * The Laplace eigenbasis (eigenvalues ``L`` and the gradient-perturbation
     matrix ``B`` in that basis) is GENERATED analytically at first use —
@@ -35,20 +35,13 @@ from ..utils.scheme import (import_PGSE_scheme, load_scheme_text,
 
 
 def _mcf_device():
-    """Complex matrix exponentials are unimplemented on some TPU runtimes;
-    the MCF simulator is a host-side dictionary-generation tool working on
-    tiny (<=60x60) matrices, so pin it to the CPU backend when present."""
+    """The MCF simulator is a host-side dictionary-generation tool working
+    on tiny (<=60x60) complex matrices: run it on the CPU backend when one
+    is present, else on the default device."""
     try:
         return jax.devices("cpu")[0]
     except RuntimeError:
-        dev = jax.devices()[0]
-        if dev.platform == "tpu":
-            raise RuntimeError(
-                "The MCF simulator needs complex matrix exponentials, which "
-                "this TPU runtime does not implement, and no CPU backend is "
-                "available to fall back to. Run MCF_PGSE/MCF_DDE in a "
-                "process with a CPU backend (e.g. JAX_PLATFORMS=cpu,tpu).")
-        return dev
+        return jax.devices()[0]
 
 _MAX_MODES = 60   # matches the reference's truncation (mcf.py:326)
 _BASIS_CACHE = {}

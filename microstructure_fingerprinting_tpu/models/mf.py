@@ -2,7 +2,7 @@
 
 Behavioral equivalent of the reference mf.py: ``MFModel`` (mf.py:464-1051),
 ``MFModelFit`` (mf.py:1054-1229) and ``cleanup_2fascicles`` (mf.py:36-335),
-re-architected for TPU:
+re-architected for an accelerator:
 
   * model init precomputes device-resident interpolation tables once
     (reference builds scipy interpolators, mf.py:506-509);
@@ -232,10 +232,6 @@ class MFModel(object):
         # grouped-rotation evaluators are jitted closures: cache them per
         # target scheme so repeated fit() calls reuse compiled programs
         self._rotators = {}
-        # Pallas-kernel health, scoped to this model: a Mosaic compile
-        # failure degrades this model's later buckets to the XLA scans
-        # without leaking the degradation to unrelated models
-        self._kernel_health = fit_mod.KernelHealth()
         print("Initiated model based on dictionary with %d single-fascicle"
               " fingerprint(s) and %d fingerprint(s) for the extra-axonal"
               " restricted (EAR) compartment." %
@@ -278,16 +274,19 @@ class MFModel(object):
         shards the second sub-dictionary's atom axis (tensor parallelism
         with an offset-corrected global first-minimum;
         parallel/mesh.sharded_df3_candidates).
-        ``refine`` selects float64 host re-scoring of the accelerator's
-        top-M candidates (default: enabled exactly when jax runs in float32,
-        i.e. on TPU, where it restores reference float64 selection quality).
-        ``engine`` picks the device scan: 'fast' (alias 'pallas') is the
-        double-float fast path — grouped-matmul rotation + compensated
-        candidate scans whose selection already matches float64; 'xla'
-        is the general tiled scan (any K / EAR size) with a ``topm``-deep
-        candidate pool; 'auto' uses the fast path for the configurations
-        it covers. Run under JAX_ENABLE_X64=1 for bit-level reference
-        parity. Returns an :class:`MFModelFit`.
+        ``refine`` selects float64 host re-scoring of the device's
+        top-M candidates (default: enabled exactly when jax runs in
+        float32, as on the GPU, where it restores reference float64
+        selection quality).
+        ``engine`` picks the device scan: 'fast' is the double-float fast
+        path — grouped-matmul rotation + compensated candidate scans whose
+        selection already matches float64; 'xla' is the general tiled scan
+        (any K / EAR size) with a ``topm``-deep candidate pool; 'auto' uses
+        the fast path on the GPU for the configurations it covers. Run
+        under JAX_ENABLE_X64=1 for bit-level reference parity.
+        Returns an :class:`MFModelFit`; its ``buckets`` maps each
+        (K, csf, ear) configuration to its voxel count, route and, for the
+        two-pass scans, the voxels each overflow tier re-solved.
         """
         VRB = verbose
         nii_affine = None
@@ -486,43 +485,21 @@ class MFModel(object):
                 continue  # stays all-zero (reference mf.py:387-388)
             configs.setdefault(key, []).append(i)
 
-        # double-float fast path: grouped-matmul rotation + compensated
-        # candidate scans (run_bucket_fast). On TPU its fused df3 kernel
-        # holds the full second sub-dictionary (S x N2) plus one atom tile
-        # in VMEM; beyond ~1500 atoms fall back to the tiled XLA scan,
-        # which streams both axes.
-        aot = None
-        use_fast = (engine in ("fast", "pallas")
-                    or (engine == "auto" and refine
-                        and jax.default_backend() == "tpu"
-                        and num_seq * self.num_atom * 4 < 4 * 2 ** 20))
-        fast_interpret = jax.default_backend() != "tpu"
-        rotator = None
-
-        def fast_covers(cfg):
-            # 1- and 2-fascicle configs (K=1 needs a CSF block to form the
-            # second scan axis); EAR additionally needs a CSF block and a
-            # small enough EAR block for its per-sweep scans
-            K_, csf_, ear_ = cfg
-            if K_ not in (1, 2) or (K_ == 1 and not csf_):
-                return False
-            return not ear_ or (csf_ and self.num_ear <= 16)
-
-        if use_fast and any(fast_covers(k) for k in configs):
-            rotator = self._grouped_rotator(plan_h, pgse_scheme)
-            # cold-start diet: compile every bucket's heavy programs
-            # up front in the fixed order that makes their
-            # persistent-cache keys reproducible across processes;
-            # the returned AOT handles let the dispatch loop skip
-            # each program's first-call re-trace. Under a mesh the
-            # programs are lowered with the chunk loop's shardings.
-            aot = fit_mod.prewarm_fast_programs(
-                self.ms_interpolator, plan_h, tables[1], sig_csf,
-                sig_ear, [k for k in sorted(configs)
-                          if fast_covers(k)],
-                batch=batch if mesh is not None else (batch_size or 512),
-                rotator=rotator, health=self._kernel_health, verbose=VRB,
-                mesh=mesh)
+        # per-bucket route (fit_mod.bucket_route): the fascicle-free host
+        # solve, the double-float fast path (grouped-matmul rotation +
+        # compensated candidate scans, run_bucket_fast) or the general
+        # tiled scan (run_bucket)
+        if engine not in ("auto", "fast", "xla"):
+            raise ValueError("engine should be 'auto', 'fast' or 'xla', "
+                             "got %r." % (engine,))
+        routes = {cfg: fit_mod.bucket_route(cfg, self.num_atom,
+                                            self.num_ear, engine, refine)
+                  for cfg in configs}
+        fast_batch = batch if mesh is not None else (batch_size or 512)
+        fast_cfgs = [cfg for cfg in sorted(configs)
+                     if routes[cfg] not in ("host", "general")]
+        rotator = (self._grouped_rotator(plan_h, pgse_scheme)
+                   if fast_cfgs else None)
 
         # progress cadence contract (reference mf.py:948-949, 455-460):
         # at verbose >= 3, one line every `disp_int` voxels, at most
@@ -537,11 +514,14 @@ class MFModel(object):
         # refinement (cross-bucket pipelining; the host->device push is
         # only hidden across buckets, not within one)
         pending = []
+        bucket_stats = {cfg: {"voxels": len(idx_list), "route": routes[cfg]}
+                        for cfg, idx_list in configs.items()}
         for (K, has_csf, has_ear), idx_list in sorted(configs.items()):
             idx = np.asarray(idx_list)
             if VRB >= 3:
-                print("Config K=%d csf=%d ear=%d: %d voxel(s)"
-                      % (K, has_csf, has_ear, idx.size))
+                print("Config K=%d csf=%d ear=%d: %d voxel(s), route %s"
+                      % (K, has_csf, has_ear, idx.size,
+                         routes[(K, has_csf, has_ear)]))
             st_bucket = time.time()
             if K == 0:
                 # fascicle-free buckets (CSF and/or EAR only) are a
@@ -552,15 +532,14 @@ class MFModel(object):
                 pend = (lambda i_=idx, c_=has_csf, e_=has_ear:
                         fit_mod.run_bucket_trivial(
                             y_roi[i_], sig_csf, sig_ear, c_, e_))
-            elif use_fast and fast_covers((K, has_csf, has_ear)):
+            elif routes[(K, has_csf, has_ear)] != "general":
                 pend = fit_mod.run_bucket_fast(
                     self.ms_interpolator, plan_h, tables[1],
                     peaks_roi[idx, :3 * K], y_roi[idx], sig_csf,
-                    K, has_csf, batch=batch if mesh is not None
-                    else (batch_size or 512), topm=topm,
-                    interpret=fast_interpret, rotator=rotator,
-                    sig_ear=sig_ear, ear_on=has_ear, mesh=mesh,
-                    defer=True, health=self._kernel_health, aot=aot)
+                    K, has_csf, batch=fast_batch, topm=topm,
+                    rotator=rotator, sig_ear=sig_ear, ear_on=has_ear,
+                    mesh=mesh, defer=True,
+                    stats=bucket_stats[(K, has_csf, has_ear)])
             else:
                 res_now = fit_mod.run_bucket(
                     tables, plan,
@@ -625,7 +604,8 @@ class MFModel(object):
                    "affine": nii_affine,
                    "mask": mask_arr,
                    "fasc_propnames": self._propnames(),
-                   "peaks_roi": peaks_roi}
+                   "peaks_roi": peaks_roi,
+                   "buckets": bucket_stats}
         for n in fitinfo["fasc_propnames"]:
             fitinfo["_dict_" + n] = np.asarray(self.dic[n])
         if ear_on:
@@ -806,6 +786,7 @@ class MFModelFit(object):
         parlist.append('R2')
 
         self.param_names = parlist
+        self.buckets = fitinfo.get("buckets", {})
         if verbose >= 2:
             print("Microstructure Fingerprinting fit object constructed.")
             print("Parameter maps (access as attributes, export with"

@@ -1,6 +1,6 @@
 // Native host kernels for the float64 refinement stage.
 //
-// The fingerprinting fit runs its exhaustive candidate scan on the TPU in
+// The fingerprinting fit runs its exhaustive candidate scan on the device in
 // float32 and re-scores the top candidates exactly in float64 on the host
 // (models/refine.py). The re-scoring gathers rotated dictionary columns
 // (binary-search + lerp over the knot tables) per candidate — a scattered

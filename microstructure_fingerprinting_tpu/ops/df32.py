@@ -1,6 +1,6 @@
 """Error-free float32 transforms (double-float building blocks).
 
-TPU MXU matmuls and VPU arithmetic round at 2^-24; the exhaustive-NNLS
+Matmuls and elementwise arithmetic round at 2^-24; the exhaustive-NNLS
 residual algebra cancels catastrophically (res = O(1) - O(1) with true value
 ~1e-9), so plain f32 scans rank near-optimal candidates by noise. These
 helpers implement the classic error-free transformations (Dekker/Knuth/
@@ -11,16 +11,16 @@ Neumaier) used by the compensated scan (ops/dfscan.py):
   * two_prod_presplit    -> (p, e) with p + e == a * b exactly
   * df values are (hi, lo) pairs with |lo| <= ulp(hi)
 
-All functions are branchless jnp expressions (safe inside jit/pallas).
-They rely on IEEE-correct f32 VPU add/mul, which the TPU provides for
-elementwise (non-MXU) ops; XLA does not reassociate floating point.
+All functions are branchless jnp expressions (safe inside jit and scan).
+They rely on IEEE-correct f32 add/mul; XLA does not reassociate floating
+point. GPU and CPU compilers do contract a product and a following add
+into one fused multiply-add: every product in these transforms is either
+exact (halves of at most 12 bits) or passed through ``_rounded`` before
+its rounding error is taken, so contraction cannot change their results.
 """
 
 import jax.numpy as jnp
-
-# 2^12 + 1 (Dekker split for f32); a plain python float so jitted users —
-# including pallas kernels, which cannot capture array constants — inline it
-_SPLITTER = 4097.0
+from jax import lax
 
 
 def two_sum(a, b):
@@ -39,11 +39,24 @@ def fast_two_sum(a, b):
 
 
 def split(a):
-    """Dekker split: a == ah + al with 12-bit-mantissa halves."""
-    c = _SPLITTER * a
-    ah = c - (c - a)
-    al = a - ah
-    return ah, al
+    """Split a == ah + al into halves of at most 12 significant bits each.
+
+    ah keeps the sign, exponent and top 11 stored mantissa bits of a (an
+    integer mask, so no rounded product is involved); al = a - ah is
+    exact. Products of two such halves are exact in f32."""
+    bits = lax.bitcast_convert_type(a, jnp.uint32) & jnp.uint32(0xFFFFF000)
+    ah = lax.bitcast_convert_type(bits, jnp.float32)
+    return ah, a - ah
+
+
+def _rounded(x):
+    """``x`` unchanged, as a value no later add can fuse with.
+
+    A compiler may contract ``x*y + z`` into one fused multiply-add,
+    which skips the rounding of ``x*y``. Where the error of that rounding
+    is then computed (two_prod, two_sum), the select stops the product
+    from being fused into its consumers."""
+    return jnp.where(jnp.isnan(x), jnp.float32(jnp.nan), x)
 
 
 def two_prod(a, b):
@@ -56,7 +69,7 @@ def two_prod(a, b):
 def two_prod_presplit(a, ah, al, b, bh, bl):
     """two_prod with both operands pre-split (the split of per-row /
     per-column factors is hoisted out of the candidate grid)."""
-    p = a * b
+    p = _rounded(a * b)
     e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
     return p, e
 
@@ -90,7 +103,7 @@ def df_mul(x, y):
 
 
 def presplit(x):
-    """df (hi, lo) -> (hi, lo, hi_h, hi_l) with the hi half Dekker-split.
+    """df (hi, lo) -> (hi, lo, hi_h, hi_l) with the hi half split.
 
     Splitting is hoisted to per-row/per-column factors so the per-grid-point
     products (mul_ps) cost ~12 flops instead of ~28.
@@ -101,7 +114,7 @@ def presplit(x):
 
 def mul_ps(x, y):
     """Product of two presplit df values -> (main, err) partial pair."""
-    p = x[0] * y[0]
+    p = _rounded(x[0] * y[0])
     e = ((x[2] * y[2] - p) + x[2] * y[3] + x[3] * y[2]) + x[3] * y[3]
     e = e + (x[0] * y[1] + x[1] * y[0])
     return p, e

@@ -5,8 +5,8 @@ Exact-selection rework of the f32 row scans: the algebraic NNLS residual
 noise), so this module evaluates every candidate's residual through two
 exact mechanisms:
 
-1. **Exact Gram via int8 MXU** (``quantize2`` / ``df_gram``): each operand
-   is decomposed as X = s1*Q1 + s2*Q2 + R with int8 Q's (exact int32 MXU
+1. **Exact Gram via int8 matmuls** (``quantize2`` / ``df_gram``): each
+   operand is decomposed as X = s1*Q1 + s2*Q2 + R with int8 Q's (exact int32
    accumulation, values < 2^24 so even the int32->f32 cast is exact) and a
    tiny f32 remainder R (|R| <= 2^-15); the Q x Q terms are EXACT and the
    A'R cross matmuls carry only a *relative* f32 error on O(1e-4)-magnitude
@@ -27,7 +27,6 @@ the scan itself reproduces float64 selection (reference mf_utils.py Numba
 kernels) instead of delegating near-ties to downstream re-scoring.
 """
 
-import math
 from functools import partial
 
 import jax
@@ -54,20 +53,6 @@ _TOL = jnp.float32(100 * 1.1920929e-07)  # 100 eps_f32 (cf. mf_utils:480)
 # (mf_utils.py:554-573 divides by D with no conditioning guard at all).
 _TOL_DET = jnp.float32(1e-12)
 
-
-
-def _unrolled_loops():
-    """Whether candidate-scan tile/sweep loops must be statically unrolled.
-
-    XLA's CPU backend was measured to mis-evaluate the compensated
-    double-float chains inside lax.scan bodies (constant ~1e-5 * ||y||^2
-    offsets on support residuals; the identical graph unrolled evaluates
-    exactly — see tests/test_dfscan.py regression tests). The TPU backend
-    evaluates both forms identically (verified on the failing data), and
-    unrolling there costs minutes of Mosaic/XLA compile time, so scans are
-    kept on TPU and unrolled everywhere else.
-    """
-    return jax.default_backend() != "tpu"
 
 
 def quantize2(X):
@@ -98,10 +83,8 @@ def quantize3(X):
     f32 — each level k sum is an integer multiple of s_k with magnitude
     <= ~1, i.e. <= 2^23 multiples at s3 = 2^-23 — which level 4 would
     break (2^31 multiples), so three levels is the exactness limit.
-    Consumers: the in-kernel exact Gram (ops/f32scan._gram_hi), where the
-    third level replaces the two f32 HIGHEST residual cross matmuls with
-    int8 MXU work + a DEFAULT-precision correction on the ~2^-24
-    residuals.
+    Consumer: the row pass's hoisted Grams (ops/f32scan._gram3_hi), where
+    the third level leaves only bf16 corrections on the ~2^-24 residuals.
     """
     Q1, Q2, R2, a2 = quantize2(X)
     Q3 = jnp.clip(jnp.round(R2 / _S3), -127, 127).astype(jnp.int8)
@@ -134,15 +117,14 @@ def df_gram(qa, qb, contract):
     return df32.df_from_sum(v_a, v_b, v_c, c1, c2)
 
 
-def df_gram_tile(qa_t, qb, n2, precision=lax.Precision.HIGH):
+def df_gram_tile(qa_t, qb, n2):
     """Specialized double-float Gram for one (B, S, T) x (B, S, N2p) tile.
 
-    The four int8 x int8 products are fused into ONE MXU call on
-    concatenated operands (better systolic-array utilization than four
-    skinny matmuls), and the small A'R cross terms (values ~1e-4 needing
-    only ~1e-6 relative accuracy) run at Precision.HIGH by default
-    (``precision=HIGHEST`` bit-matches the in-kernel exact Gram of
-    ops/f32scan._gram_hi, where Mosaic rejects HIGH).
+    The four int8 x int8 products are fused into ONE integer matmul on
+    concatenated operands (one large product instead of four skinny
+    ones). The small A'R cross terms (values ~1e-4) run in full f32
+    (Precision.HIGHEST): a TF32 product keeps ~11 bits, which would
+    leave ~1e-7 absolute error against the ~1e-10 Gram budget.
     qa_t: quantized tile (Q1 (B,S,T), Q2, R, a); qb: quantized full block.
     Returns (hi, lo) of shape (B, T, N2p).
     """
@@ -159,10 +141,8 @@ def df_gram_tile(qa_t, qb, n2, precision=lax.Precision.HIGH):
     v_a = t11.astype(jnp.float32) * jnp.float32(2.0 ** -14)
     v_b = t12.astype(jnp.float32) * jnp.float32(2.0 ** -22)
     v_c = t22.astype(jnp.float32) * jnp.float32(2.0 ** -30)
-    hp_high = dict(preferred_element_type=jnp.float32,
-                   precision=precision)
-    c1 = jnp.einsum("bst,bsn->btn", aa + Ra, Rb, **hp_high)
-    c2 = jnp.einsum("bst,bsn->btn", Ra, ab, **hp_high)
+    c1 = jnp.einsum("bst,bsn->btn", aa + Ra, Rb, **_HP)
+    c2 = jnp.einsum("bst,bsn->btn", Ra, ab, **_HP)
     return df32.df_from_sum(v_a, v_b, v_c, c1, c2)
 
 
@@ -413,13 +393,7 @@ def df3_candidates(A1, A2, a3, y, M=8, tile=256):
 
     init = (jnp.full((B, M), jnp.inf, jnp.float32),
             jnp.zeros((B, M), jnp.int32))
-    if _unrolled_loops():
-        carry = init
-        for _t in range(n_tiles):
-            carry, _ = body(carry, _t)
-        (vals, flats) = carry
-    else:
-        (vals, flats), _ = lax.scan(body, init, jnp.arange(n_tiles))
+    (vals, flats), _ = lax.scan(body, init, jnp.arange(n_tiles))
     cand = jnp.stack([flats // N2, flats % N2], axis=2).astype(jnp.int32)
     return cand, vals, yn * yn
 
@@ -505,13 +479,7 @@ def df2_candidates(A1, A2, y, M=8, tile=256):
 
     init = (jnp.full((B, M), jnp.inf, jnp.float32),
             jnp.zeros((B, M), jnp.int32))
-    if _unrolled_loops():
-        carry = init
-        for _t in range(n_tiles):
-            carry, _ = body(carry, _t)
-        (vals, flats) = carry
-    else:
-        (vals, flats), _ = lax.scan(body, init, jnp.arange(n_tiles))
+    (vals, flats), _ = lax.scan(body, init, jnp.arange(n_tiles))
     cand = jnp.stack([flats // N2, flats % N2], axis=2).astype(jnp.int32)
     return cand, vals, yn * yn
 
@@ -639,7 +607,8 @@ def df4_candidates(A1, A2, a3, a4, y, M=8, tile=256):
     factors hoisted (stable for the near-collinear (csf, ear) pairs of real
     dictionaries), the {1,2,4} support by the quadratic-in-g12 bordered
     determinant; supports not containing both grid variables are hoisted.
-    Sweeps are statically unrolled (NOT lax.scan; see the in-body note). Candidate rank follows itertools.product order
+    Tiles and sweeps run as lax.scan loops. Candidate rank follows
+    itertools.product order
     ((i1, i2, i3, i4) lexicographic, reference mf_utils.py:637).
     Returns (cand (B, M, 4) int32, res (B, M) normalized residuals,
     y_sq (B,) raw)."""
@@ -887,15 +856,9 @@ def df4_candidates(A1, A2, a3, a4, y, M=8, tile=256):
             return (jnp.where(upd, res_s, best),
                     jnp.where(upd, sw["s_idx"], best_s))
 
-        if _unrolled_loops():
-            for _s in range(NS):
-                sw_s = jax.tree_util.tree_map(lambda x: x[_s], xs_sweep)
-                best, best_s = sweep_eval((best, best_s), sw_s)
-        else:
-            def sweep_scan(carry_s, sw):
-                return sweep_eval(carry_s, sw), None
-            (best, best_s), _ = lax.scan(sweep_scan, (best, best_s),
-                                         xs_sweep)
+        def sweep_scan(carry_s, sw):
+            return sweep_eval(carry_s, sw), None
+        (best, best_s), _ = lax.scan(sweep_scan, (best, best_s), xs_sweep)
 
         i1 = (jnp.int32(st)
               + lax.broadcasted_iota(jnp.int32, (tile, N2), 0))
@@ -909,14 +872,8 @@ def df4_candidates(A1, A2, a3, a4, y, M=8, tile=256):
 
     init = (jnp.full((B, M), jnp.inf, jnp.float32),
             jnp.zeros((B, M), jnp.int32))
-    if _unrolled_loops():
-        carry = init
-        for _t in range(n_tiles):
-            carry = body(carry, _t)
-        (vals, flats) = carry
-    else:
-        (vals, flats), _ = lax.scan(
-            lambda c, t: (body(c, t), None), init, jnp.arange(n_tiles))
+    (vals, flats), _ = lax.scan(
+        lambda c, t: (body(c, t), None), init, jnp.arange(n_tiles))
     s = flats % NS
     pt_ = flats // NS
     cand = jnp.stack([pt_ // N2, pt_ % N2, s // N4, s % N4],
@@ -1191,7 +1148,8 @@ def df_nnls_cols(cols, y):
     """Exact small NNLS across gathered columns, on device.
 
     cols (B, S, C) f32 raw-scale columns (C <= 4); y (B, S) raw.
-    Returns (w (B, C) f32 raw-scale weights, res (B,) f32 raw residual).
+    Returns (w (B, C) f32 raw-scale weights, (res_hi, res_lo)) with the raw
+    residual as a double-float pair res_hi + res_lo (B,) each.
     Columns and signal are scaled by per-column powers of two (exact in
     f32), Grams are computed exactly (quantize2 + df_gram), and the
     closed-form solvers run with double-float values — selections and
@@ -1206,7 +1164,10 @@ def df_nnls_cols(cols, y):
         return _nnls_cols_f64(cols, y)
     cols = cols.astype(jnp.float32)
     y = y.astype(jnp.float32)
-    pow2 = lambda m: jnp.exp2(jnp.ceil(jnp.log2(jnp.maximum(m, 1e-30))))
+    # scale into (0.25, 0.5]: entries near 1 would saturate quantize2's
+    # int8 levels, and the larger remainder costs the Gram ~1e-9 accuracy
+    pow2 = lambda m: 2 * jnp.exp2(jnp.ceil(jnp.log2(jnp.maximum(m,
+                                                                 1e-30))))
     sc = pow2(jnp.max(jnp.abs(cols), axis=1))               # (B, C)
     sy = pow2(jnp.max(jnp.abs(y), axis=1))                  # (B,)
     cs = cols / sc[:, None, :]
@@ -1239,8 +1200,7 @@ def df_nnls_cols(cols, y):
     # undo the power-of-two scalings (exact)
     w = jnp.stack([_val(wi) for wi in w_list], axis=1)
     w = w * (sy[:, None] / sc)
-    res_raw = _val(res) * (sy * sy)
-    return w, res_raw
+    return w, _scale(res, sy * sy)
 
 
 def _nnls_cols_f64(cols, y):
@@ -1254,17 +1214,17 @@ def _nnls_cols_f64(cols, y):
     Y = [jnp.einsum("bs,bs->b", cols[:, :, i], y, **hp) for i in range(C)]
     if C == 1:
         w0, res = mfn.lsqnonneg_1var(y_sq, G[0][0], Y[0])
-        return w0[:, None], res
+        return w0[:, None], _df(res)
     if C == 2:
         w1, w2, res = mfn.lsqnonneg_2var(y_sq, G[0][0], G[0][1], G[1][1],
                                          Y[0], Y[1])
-        return jnp.stack([w1, w2], axis=1), res
+        return jnp.stack([w1, w2], axis=1), _df(res)
     if C == 3:
         w1, w2, w3, res = mfn.lsqnonneg_3var(
             y_sq, G[0][0], G[1][1], G[2][2], G[0][1], G[0][2], G[1][2],
             Y[0], Y[1], Y[2])
-        return jnp.stack([w1, w2, w3], axis=1), res
+        return jnp.stack([w1, w2, w3], axis=1), _df(res)
     ws = mfn.lsqnonneg_4var(
         y_sq, tuple(tuple(G[i][j] for j in range(4)) for i in range(4)),
         tuple(Y))
-    return jnp.stack(ws[:4], axis=1), ws[4]
+    return jnp.stack(ws[:4], axis=1), _df(ws[4])

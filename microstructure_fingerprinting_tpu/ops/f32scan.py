@@ -1,12 +1,13 @@
-"""Two-pass exact candidate scan: f32 interval row pass + df re-scan.
+"""Two-pass exact candidate scan: f32 interval row pass + df re-scan,
+for the [N1, N2, 1] (2-fascicle + CSF) configuration.
 
 The one-pass double-float scans (ops/dfscan) evaluate every candidate of
-the N1 x N2 (x NS) grid with compensated arithmetic (~400 VPU flops per
+the N1 x N2 grid with compensated arithmetic (~400 flops per
 point) to resolve residual near-ties to ~1e-10 * ||y||^2. Exactness is
 only ever *needed* near the optimum, so this module splits the scan:
 
   pass 1  f32 row scan (~70 flops/point): per-row (i1) INTERVALS
-          [lo, up] of min_{i2,...} residual over the supports CONTAINING
+          [lo, up] of min_{i2} residual over the supports CONTAINING
           block 1, plus a per-voxel floor interval for the block-1-free
           supports. Residuals are evaluated in *progressive elimination*
           form — ``rho_next = rho - t^2 / pivot`` chains whose f32 error
@@ -21,16 +22,14 @@ only ever *needed* near the optimum, so this module splits the scan:
           reference first-minimum when the floor wins), index-sorted so
           local tie-breaking matches global reference order. Capped at R
           rows; `ok` is False when more than R - 1 rows qualify.
-  pass 2  the existing double-float scan (dfscan.df3/df4_candidates) on
+  pass 2  the existing double-float scan (dfscan.df3_candidates) on
           the R gathered rows only — ~R/N1 of the one-pass df cost, with
           unchanged (reference) selection semantics.
 
-Feasibility and guard semantics MIRROR the respective one-pass scans:
-the K=3 case logic keeps the reference's unguarded {1,2} Cramer branch
-and its D_i >= -100*eps full-support tolerance (mf_utils.py:548-593,
-expressed in weight space as w_i >= -tol / detG3), while the 4-block
-support enumeration keeps df4's det > 100*eps * prod(diag) guards.
-Borderline boolean disagreements switch between supports whose residuals
+Feasibility semantics MIRROR the one-pass scan: the K=3 case logic
+keeps the reference's unguarded {1,2} Cramer branch and its relaxed
+full-support test (mf_utils.py:548-593, expressed in weight space as
+w_i >= -tol / detG3) for the lower bounds. Borderline boolean disagreements switch between supports whose residuals
 agree to second order; the KERR radius absorbs them (validated against
 float64 oracles and the one-pass scans in tests/test_f32scan.py,
 including adversarially correlated and sign-indefinite data).
@@ -50,8 +49,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from . import df32
 from . import dfscan
@@ -66,11 +63,8 @@ _EPS = float(1.1920929e-07)
 #: once to f32) the progressive chains' measured worst error is ~1.2 eps
 #: on production fingerprint data (f64-prep decomposition: the f32 Gram
 #: einsums contributed ~19 of the previous 20 eps) — 8 eps keeps a ~6x
-#: margin. KERR4 covers the longer 4-block LDL chains.
-#: Python floats (weak-typed): f32 compute is preserved and the
-#: ``det_tol > 0`` routing stays a static Python bool under jit.
+#: margin. A Python float (weak-typed): f32 compute is preserved.
 KERR = float(8 * 1.1920929e-07)
-KERR4 = float(12 * 1.1920929e-07)
 _INF = float(np.inf)
 
 
@@ -78,21 +72,13 @@ def _sanit(x):
     return jnp.where(jnp.isnan(x), jnp.inf, x)
 
 
-def _interval(feas, stab, res, ws, excl=False):
+def _interval(feas, stab, res, ws):
     """(lo, up) for one support: feasible -> res +- KERR*(1+ws);
     numerically unstable (pivot too small to divide) -> sound fallback
-    [-KERR, +inf); infeasible -> no contribution.
-
-    ``excl=True`` marks a det-GUARDED support family (the 4-block
-    enumeration): the mirrored one-pass scan excludes supports whose df
-    determinant fails its 100*eps guard, and an f32 pivot below the
-    stability cutoff (eps << 100*eps, pivots bounded by their diagonals)
-    implies that df guard also fails — so the unstable case contributes
-    nothing instead of the band-polluting [-KERR, +inf)."""
+    [-KERR, +inf); infeasible -> no contribution."""
     err = KERR * (1.0 + ws)
     res = _sanit(res)
-    fb = _INF if excl else -KERR
-    lo = jnp.where(feas, res - err, jnp.where(stab, _INF, fb))
+    lo = jnp.where(feas, res - err, jnp.where(stab, _INF, -KERR))
     up = jnp.where(feas, res + err, _INF)
     return lo, up
 
@@ -103,11 +89,10 @@ def _sub1(d, p, w):
     return _interval(wa >= 0, True, w - p * wa, jnp.abs(wa))
 
 
-def _sub2(dA, dB, g, pA, pB, w, det_tol):
-    """Support {a, b}, eliminating a (diag ~1) then b. ``det_tol`` is the
-    relative determinant cutoff of the mirrored one-pass semantics:
-    _TOL for the 4-block enumeration (dfscan._sub2_df), 0 for the K=3
-    case logic (unguarded reference Cramer branch)."""
+def _sub2(dA, dB, g, pA, pB, w):
+    """Support {a, b}, eliminating a (diag ~1) then b, without a
+    determinant guard (the reference's unguarded 2-variable Cramer
+    branch)."""
     invA = 1.0 / dA
     piv = dB - g * g * invA
     stab = piv > _EPS * dB
@@ -115,35 +100,9 @@ def _sub2(dA, dB, g, pA, pB, w, det_tol):
     t = pB - g * pA * invA
     wb = t * invP
     wa = (pA - g * wb) * invA
-    feas = stab & (piv > det_tol * dB) & (wa >= 0) & (wb >= 0)
+    feas = stab & (wa >= 0) & (wb >= 0)
     res = w - pA * pA * invA - t * wb
-    return _interval(feas, stab, res, jnp.abs(wa) + jnp.abs(wb),
-                     excl=bool(det_tol > 0))
-
-
-def _sub3(dA, dB, dC, gAB, gAC, gBC, pA, pB, pC, w, det_tol):
-    """Support {a, b, c}, progressive elimination a -> b -> c; det gate
-    pivB * pivC > det_tol * dB * dC mirrors det3 > det_tol * dA*dB*dC."""
-    invA = 1.0 / dA
-    pivB = dB - gAB * gAB * invA
-    stabB = pivB > _EPS * dB
-    invB = jnp.where(stabB, 1.0 / jnp.where(stabB, pivB, 1.0), 0.0)
-    gBC_r = gBC - gAB * gAC * invA
-    tB = pB - gAB * pA * invA
-    pivC = dC - gAC * gAC * invA - gBC_r * gBC_r * invB
-    stabC = pivC > _EPS * dC
-    invC = jnp.where(stabC, 1.0 / jnp.where(stabC, pivC, 1.0), 0.0)
-    tC = pC - gAC * pA * invA - gBC_r * tB * invB
-    wc = tC * invC
-    wb = (tB - gBC_r * wc) * invB
-    wa = (pA - gAB * wb - gAC * wc) * invA
-    stab = stabB & stabC
-    feas = (stab & (pivB * pivC > det_tol * dB * dC)
-            & (wa >= 0) & (wb >= 0) & (wc >= 0))
-    res = w - pA * pA * invA - tB * tB * invB - tC * wc
-    return _interval(feas, stab, res,
-                     jnp.abs(wa) + jnp.abs(wb) + jnp.abs(wc),
-                     excl=bool(det_tol > 0))
+    return _interval(feas, stab, res, jnp.abs(wa) + jnp.abs(wb))
 
 
 def _fold(lo, up, lo2, up2):
@@ -151,23 +110,22 @@ def _fold(lo, up, lo2, up2):
 
 
 def _gram3_hi(qa, qb, contract):
-    """Exact-rounded f32 Gram from two quantize3 decompositions — the XLA
-    hoist sibling of the in-kernel ``_gram_hi``: the 9 int8 level products
-    (grouped by scale, each group's int32 sum < 2^25 so the f32 casts are
-    ~2^-55-absolute exact) are combined error-free with the two bf16
-    corrections on the ~2^-24 quantization residuals (bf16's 2^-9
-    relative error lands at ~0.5 eps_f32 absolute — the same error model
-    as the kernel's Gram, inside the 8 eps row-pass radius). Replaces the
-    former quantize2 + f32-HIGHEST df_gram hoists: no second quantization
-    pass over the rotated blocks, and the correction operands are the
-    bf16 casts the kernel packs already materialize (CSE'd)."""
+    """Exact-rounded f32 Gram from two quantize3 decompositions, for the
+    row/column/voxel hoists: the 9 int8 level products (grouped by scale,
+    each group's int32 sum < 2^25 so the f32 casts are ~2^-55-absolute
+    exact) are combined error-free with the two bf16 corrections on the
+    ~2^-24 quantization residuals (bf16 operands and f32 accumulation:
+    bf16's 2^-9 relative error lands at ~0.5 eps_f32 absolute, inside the
+    8 eps row-pass radius; the products of bf16 values are exact, and
+    HIGHEST keeps their f32 accumulation out of TF32)."""
     Q1a, Q2a, Q3a, Ra, aa = qa
     Q1b, Q2b, Q3b, Rb, ab = qb
     ei = lambda x, y: jnp.einsum(contract, x, y,
                                  preferred_element_type=jnp.int32)
     bf = jnp.bfloat16
     eb = lambda x, y: jnp.einsum(contract, x.astype(bf), y.astype(bf),
-                                 preferred_element_type=jnp.float32)
+                                 preferred_element_type=jnp.float32,
+                                 precision=lax.Precision.HIGHEST)
     t11 = ei(Q1a, Q1b)
     t12 = ei(Q1a, Q2b) + ei(Q2a, Q1b)
     t22 = ei(Q2a, Q2b) + ei(Q1a, Q3b) + ei(Q3a, Q1b)
@@ -182,137 +140,8 @@ def _gram3_hi(qa, qb, contract):
         t23.astype(f) * f(2.0 ** -38), t33.astype(f) * f(2.0 ** -46))[0]
 
 
-def _gram_hi(q123, a1bf, rabf, qb, rbbf, abbf, tile, n2b):
-    """In-kernel EXACT Gram tile (rounded-to-f32 hi part): one int8 MXU
-    dot on the packed THREE-level [Q1|Q2|Q3] decomposition
-    (dfscan.quantize3) + two bf16 matmuls correcting the ~2^-24 residuals
-    (A'R_b + R_a'a_b; need only ~1% relative accuracy, so bf16 operands
-    are sound AND halve the correction operands' HBM traffic). Versus the
-    two-level + HIGHEST-cross form this trades 12 bf16 matmul passes for
-    5 extra int8 MXU units — ~2x less MXU time at unchanged ~ulp Gram
-    accuracy."""
-    P = lax.dot_general(q123, qb, (((0,), (0,)), ((), ())),
-                        preferred_element_type=jnp.int32)
-    T, W = tile, n2b
-    t11 = P[:T, :W]
-    t12 = P[:T, W:2 * W] + P[T:2 * T, :W]
-    t22 = P[T:2 * T, W:2 * W] + P[:T, 2 * W:] + P[2 * T:, :W]
-    t23 = P[T:2 * T, 2 * W:] + P[2 * T:, W:2 * W]
-    t33 = P[2 * T:, 2 * W:]
-    v_a = t11.astype(jnp.float32) * jnp.float32(2.0 ** -14)
-    v_b = t12.astype(jnp.float32) * jnp.float32(2.0 ** -22)
-    v_c = t22.astype(jnp.float32) * jnp.float32(2.0 ** -30)
-    v_d = t23.astype(jnp.float32) * jnp.float32(2.0 ** -38)
-    v_e = t33.astype(jnp.float32) * jnp.float32(2.0 ** -46)
-    hp = dict(preferred_element_type=jnp.float32,
-              precision=lax.Precision.DEFAULT)
-    c1 = lax.dot_general(a1bf, rbbf, (((0,), (0,)), ((), ())), **hp)
-    c2 = lax.dot_general(rabf, abbf, (((0,), (0,)), ((), ())), **hp)
-    # ascending plain sum instead of a two_sum cascade: the row pass only
-    # needs the ROUNDED Gram (the err radius covers ~2 eps of summation
-    # error; an exact (hi, lo) pair would cost ~6x the VPU flops here,
-    # and this combine chain is a large share of the kernel's VPU time)
-    return v_a + (v_b + (v_c + (c1 + (c2 + (v_d + v_e)))))
-
-
-def _rowmin3_kernel(q1ab_ref, a1h_ref, ra_ref, qb_ref, rb_ref, ab_ref,
-                    row_ref, col_ref, vox_ref, out_ref, out2_ref,
-                    *, n1, n2, n2b, tile):
-    """Pallas TPU kernel: one (column-block x i1-tile) cell of the f32
-    interval row scan. Same formulas as rowmin_3's XLA body; constants
-    are python floats (array constants cannot be captured by kernels).
-
-    Grid (B, NB, n_tiles), ROW TILES INNERMOST: the big column-side
-    operands' block index is constant across the inner axis, so they are
-    fetched once per column block instead of once per (tile, block) cell
-    — the dominant HBM traffic drops from NB*n_tiles to NB fetches per
-    voxel. The output block (1, n_tiles, 8, T) is the whole per-voxel
-    accumulator (revisited across the full (c, t) sweep): out[t, 0]
-    accumulates lo, out[t, 1] up."""
-    EPS = 1.1920929e-07
-    TOL = float(100 * 1.1920929e-07)
-    KER = KERR
-    INF = float(np.inf)
-    cb = pl.program_id(1)
-    t_id = pl.program_id(2)
-    a = _gram_hi(q1ab_ref[0, 0], a1h_ref[0, 0], ra_ref[0, 0],
-                 qb_ref[0, 0], rb_ref[0, 0], ab_ref[0, 0],
-                 tile, n2b)                                 # (T, N2B)
-    rp = lambda i: row_ref[0, i][:, None]
-    (d1t, invd1t, kap_pt, rho1t, kap_bt, d1pt, invd1pt, kap_ppt,
-     rho13t, lo_rt, up_rt, stab1t) = (rp(i) for i in range(12))
-    cp = lambda i: col_ref[0, i][None, :]
-    d2c, qc, cc, d2pc, q2pc, kapcc = (cp(i) for i in range(6))
-    u3v = vox_ref[0, 0, 0]
-    invd3v = vox_ref[0, 0, 1]
-
-    # support {1,2}
-    pivA = d2c - a * a * invd1t
-    stabA = pivA > EPS * d2c
-    invA = jnp.where(stabA, 1.0 / jnp.where(stabA, pivA, 1.0), 0.0)
-    tA = qc - a * kap_pt
-    w2 = tA * invA
-    w1 = kap_pt - a * invd1t * w2
-    # strict feasibility -> weights >= 0 wherever err12 is consumed, so
-    # the |w| sum reduces to a plain sum and the conjunction to one min
-    feas12 = stabA & (jnp.minimum(w1, w2) > 0)
-    res12 = rho1t - tA * w2
-    res12 = jnp.where(jnp.isnan(res12), INF, res12)
-    s12 = w1 + w2
-    err12 = KER * (1.0 + s12 + s12 * s12)
-    lo = jnp.where(feas12, res12 - err12, jnp.where(stabA, INF, -KER))
-    up = jnp.where(feas12, res12 + err12, INF)
-
-    # support {1,2,3}
-    ap = a - kap_bt * cc
-    pivB = d2pc - ap * ap * invd1pt
-    stabB = (stab1t > 0.5) & (pivB > EPS * d2c)
-    invB = jnp.where(stabB, 1.0 / jnp.where(stabB, pivB, 1.0), 0.0)
-    tB = q2pc - ap * kap_ppt
-    w2f = tB * invB
-    w1f = kap_ppt - ap * invd1pt * w2f
-    w3f = u3v - kap_bt * w1f - kapcc * w2f
-    # no det gate (mirrors the XLA body): the one-pass scan resolves
-    # detG3 in double-float down to ~1e-12, far below f32 resolution —
-    # stability-guarded evaluation with the weight-scaled radius is the
-    # sound bound for ill-conditioned supports
-    tolw = TOL * invd3v * invd1pt * invB
-    # relaxed feasibility (w >= -tolw): err123 keeps the |w| form — the
-    # slightly-negative weights it admits must still inflate the radius
-    feas123 = (stabB
-               & (jnp.minimum(jnp.minimum(w1f, w2f), w3f) >= -tolw))
-    res123 = rho13t - tB * w2f
-    res123 = jnp.where(jnp.isnan(res123), INF, res123)
-    s123 = jnp.abs(w1f) + jnp.abs(w2f) + jnp.abs(w3f)
-    err123 = KER * (1.0 + s123 + s123 * s123)
-    lo = jnp.minimum(lo, jnp.where(feas123, res123 - err123,
-                                   jnp.where(stabB, INF, -KER)))
-    up = jnp.minimum(up, jnp.where(feas123, res123 + err123, INF))
-
-    col = cb * n2b + lax.broadcasted_iota(jnp.int32, a.shape, 1)
-    valid = col < n2
-    lo = jnp.where(valid, lo, INF)
-    up = jnp.where(valid, up, INF)
-    lo_t = jnp.min(lo, axis=1)
-    up_t = jnp.min(up, axis=1)
-    first = cb == 0
-    prev_lo = jnp.where(first, lo_rt[:, 0], out_ref[0, t_id, 0])
-    prev_up = jnp.where(first, up_rt[:, 0], out_ref[0, t_id, 1])
-    out_ref[0, t_id, 0] = jnp.minimum(prev_lo, lo_t)
-    out_ref[0, t_id, 1] = jnp.minimum(prev_up, up_t)
-    # per-column lo minima (column-band pruning); padded rows carry zero
-    # chain prefixes whose shell-zone -KER values must be masked out
-    rowi = t_id * tile + lax.broadcasted_iota(jnp.int32, lo.shape, 0)
-    lo_c = jnp.min(jnp.where(rowi < n1, lo, INF), axis=0)
-    prev_c = jnp.where(t_id == 0, INF, out2_ref[0, 0, 0])
-    out2_ref[0, 0, 0] = jnp.minimum(prev_c, lo_c)
-
-
-@partial(jax.jit, static_argnames=("tile", "pallas", "interpret",
-                                   "colmin", "ptile", "colcap",
-                                   "_prep_only"))
-def rowmin_3(A1, A2, a3, y, tile=256, pallas=False, interpret=False,
-             colmin=False, ptile=128, colcap=512, _prep_only=False):
+@partial(jax.jit, static_argnames=("tile", "colmin"))
+def rowmin_3(A1, A2, a3, y, tile=256, colmin=False):
     """f32 per-row residual intervals for the [N1, N2, 1] configuration.
 
     A1 (B, S, N1), A2 (B, S, N2), a3 (B, S, 1), y (B, S).
@@ -320,9 +149,7 @@ def rowmin_3(A1, A2, a3, y, tile=256, pallas=False, interpret=False,
     bounds of min_{i2} over supports CONTAINING block 1, plus the
     per-voxel upper bound of the block-1-free supports (normalized
     problem). The full row minimum is min(row interval, floor).
-    ``pallas`` runs the per-point chain as a fused VMEM kernel
-    (_rowmin3_kernel — TPU, or anywhere with ``interpret``); the plain
-    XLA body is the portable default. ``colmin=True`` additionally
+    ``colmin=True`` additionally
     returns the per-COLUMN lower bounds lo_col (B, N2) (per-point lo
     reduced over rows, folded with the {2}, {2,3} column supports) for
     column-band pruning (df3_twopass).
@@ -333,64 +160,26 @@ def rowmin_3(A1, A2, a3, y, tile=256, pallas=False, interpret=False,
     # Grams were the dominant error source of the whole pass — measured
     # 20 eps worst vs ~1 eps exact — and set the err radius, hence the
     # band width and the overflow rate).
-    if pallas:
-        # fused prep (ops/pallas_prep): ONE VMEM pass over each raw
-        # rotated block emits the normalized/quantized kernel operand
-        # packs AND the hoist Grams — the former XLA prep (normalize,
-        # quantize, per-Gram einsums, pack transposes) was ~15 separate
-        # HBM passes and 79 of rowmin_3's 113 ms per 512-voxel chunk.
-        # Grams come back padded (zero columns -> zero Grams); the chain
-        # hoists below run at the padded widths, and the kernel masks
-        # padded rows/columns out of every reduction.
-        from . import pallas_prep as pp
-        tile = ptile
-        n_tiles = int(math.ceil(N1 / tile))
-        N1p = n_tiles * tile
-        NB = 1
-        N2_128 = int(math.ceil(N2 / 128) * 128)
-        while N2_128 // NB > colcap and NB < 8:
-            NB *= 2
-        N2B = int(math.ceil(N2_128 / NB / 128) * 128)
-        N2pb = NB * N2B
-        A3h, _ = mfn._normalize_block(a3)
-        yh, _yn, _ys = mfn._normalize_y(y)
-        rhs_q, rhs_r, rhs_a, q3s = pp.pack_rhs(
-            [yh.astype(jnp.float32), A3h[:, :, 0].astype(jnp.float32)])
-        A1p, _np1 = pp.pad_block(A1, tile)
-        A2p, _np2 = pp.pad_block(A2, N2B)
-        q123_t, a1bf_t, rabf_t, _abf1, gramA = pp.prep_block(
-            A1p, rhs_q, rhs_r, rhs_a, tile, interpret=interpret,
-            planes="xr")
-        qb3, _xbf2, rbbf, abbf, gramB = pp.prep_block(
-            A2p, rhs_q, rhs_r, rhs_a, N2B, interpret=interpret,
-            planes="ra")
-        d1, p_, b_ = gramA[:, 0], gramA[:, 1], gramA[:, 2]  # (B, N1p)
-        d2, q_, c_ = gramB[:, 0], gramB[:, 1], gramB[:, 2]  # (B, N2pb)
-        gs = _gram3_hi
-        d3 = gs(q3s[1], q3s[1], "bs,bs->b")
-        r_ = gs(q3s[1], q3s[0], "bs,bs->b")
-        w_ = gs(q3s[0], q3s[0], "bs,bs->b")
-    else:
-        A1h, _ = mfn._normalize_block(A1)
-        A2h, _ = mfn._normalize_block(A2)
-        A3h, _ = mfn._normalize_block(a3)
-        yh, _yn, _ys = mfn._normalize_y(y)
-        A1h = A1h.astype(jnp.float32)
-        A2h = A2h.astype(jnp.float32)
-        A3h = A3h.astype(jnp.float32)
-        yh = yh.astype(jnp.float32)
-        q3A1, q3A2, q3A3, q3y = (dfscan.quantize3(x)
-                                 for x in (A1h, A2h, A3h, yh))
-        g = _gram3_hi
-        d1 = g(q3A1, q3A1, "bsn,bsn->bn")                 # ~1
-        d2 = g(q3A2, q3A2, "bsn,bsn->bn")
-        d3 = g(q3A3, q3A3, "bsn,bsn->bn")[:, 0]           # (B,)
-        p_ = g(q3A1, q3y, "bsn,bs->bn")
-        q_ = g(q3A2, q3y, "bsn,bs->bn")
-        r_ = g(q3A3, q3y, "bsn,bs->bn")[:, 0]
-        b_ = g(q3A1, q3A3, "bsn,bsm->bn")
-        c_ = g(q3A2, q3A3, "bsn,bsm->bn")
-        w_ = g(q3y, q3y, "bs,bs->b")
+    A1h, _ = mfn._normalize_block(A1)
+    A2h, _ = mfn._normalize_block(A2)
+    A3h, _ = mfn._normalize_block(a3)
+    yh, _yn, _ys = mfn._normalize_y(y)
+    A1h = A1h.astype(jnp.float32)
+    A2h = A2h.astype(jnp.float32)
+    A3h = A3h.astype(jnp.float32)
+    yh = yh.astype(jnp.float32)
+    q3A1, q3A2, q3A3, q3y = (dfscan.quantize3(x)
+                             for x in (A1h, A2h, A3h, yh))
+    g = _gram3_hi
+    d1 = g(q3A1, q3A1, "bsn,bsn->bn")                 # ~1
+    d2 = g(q3A2, q3A2, "bsn,bsn->bn")
+    d3 = g(q3A3, q3A3, "bsn,bsn->bn")[:, 0]           # (B,)
+    p_ = g(q3A1, q3y, "bsn,bs->bn")
+    q_ = g(q3A2, q3y, "bsn,bs->bn")
+    r_ = g(q3A3, q3y, "bsn,bs->bn")[:, 0]
+    b_ = g(q3A1, q3A3, "bsn,bsm->bn")
+    c_ = g(q3A2, q3A3, "bsn,bsm->bn")
+    w_ = g(q3y, q3y, "bs,bs->b")
 
     e1 = lambda x: x[:, None]                              # (B, 1)
     d3e, re, we = e1(d3), e1(r_), e1(w_)
@@ -399,12 +188,12 @@ def rowmin_3(A1, A2, a3, y, tile=256, pallas=False, interpret=False,
     # semantics: no det guard on 2-var branches)
     lo_row, up_row = _sub1(d1, p_, we)
     lo_row, up_row = _fold(lo_row, up_row,
-                           *_sub2(d1, d3e, b_, p_, re, we, 0.0))
+                           *_sub2(d1, d3e, b_, p_, re, we))
     # block-1-free floor: supports {2}, {2,3}, {3}, {}
     lo3, up3 = _sub1(d3e, re, we)
     upf = jnp.minimum(up3[:, 0], w_ + KERR)
     loc_, upc_ = _sub1(d2, q_, we)
-    loc2, upc2 = _sub2(d2, d3e, c_, q_, re, we, 0.0)
+    loc2, upc2 = _sub2(d2, d3e, c_, q_, re, we)
     upf = jnp.minimum(upf, jnp.min(jnp.minimum(upc_, upc2), axis=1))
     lo_c_sup = jnp.minimum(loc_, loc2)                     # (B, N2)
 
@@ -426,83 +215,6 @@ def rowmin_3(A1, A2, a3, y, tile=256, pallas=False, interpret=False,
     q2p = q_ - c_ * (re * invd3)
     kap_c = c_ * invd3
 
-    if pallas:
-        rowv = [d1, invd1, kap_p, rho1, kap_b, d1p, invd1p, kap_pp,
-                rho13, lo_row, up_row]                     # (B, N1p)
-        stab1f = stab1.astype(jnp.float32)
-        row_pack = jnp.stack(rowv + [stab1f], axis=1)  # (B, 12, N1p)
-        row_pack = jnp.pad(row_pack, ((0, 0), (0, 4), (0, 0)))
-        col_pack = jnp.stack([d2, q_, c_, d2p, q2p, kap_c], axis=1)
-        col_pack = jnp.pad(col_pack, ((0, 0), (0, 2), (0, 0)))
-        vox = jnp.stack([u3[:, 0], invd3[:, 0]]
-                        + [jnp.zeros_like(u3[:, 0])] * 6,
-                        axis=1)[:, None, :]                # (B, 1, 8)
-        # the int8 [Q1 | Q2 | Q3] level packs + bf16 correction operands
-        # come straight from the fused prep kernel, already in the
-        # CONTIGUOUS (B, blocks, S, d) layout (one linear HBM read per
-        # VMEM block), consumed by the in-kernel exact Gram (_gram_hi)
-        # ROW TILES INNERMOST: the column-side blocks' index is constant
-        # across the inner axis, so the dominant HBM traffic (the big
-        # column operands) is fetched NB times per voxel, not NB*n_tiles
-        grid = (B, NB, n_tiles)
-        tiled = lambda d: pl.BlockSpec(
-            (1, 1, S, d), lambda b, c, t: (b, t, 0, 0),
-            memory_space=pltpu.VMEM)
-        colblk = lambda d: pl.BlockSpec(
-            (1, 1, S, d), lambda b, c, t: (b, c, 0, 0),
-            memory_space=pltpu.VMEM)
-        if _prep_only:  # profiling: operand prep without the kernel
-            return (q123_t, a1bf_t, rabf_t, qb3, rbbf, abbf, row_pack,
-                    col_pack, vox)
-        # larger (tile x N2B) cells exceed Mosaic's default 16 MB scoped-
-        # VMEM cap (the int32 Gram tile alone is 9*tile*N2B*4 bytes);
-        # grant headroom like row_scan_df4 — v5e cores have 128 MB VMEM
-        params = (dict(compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024))
-                  if not interpret and tile * N2B > 128 * 512 else {})
-        out, out2 = pl.pallas_call(
-            partial(_rowmin3_kernel, n1=N1, n2=N2, n2b=N2B, tile=tile),
-            grid=grid,
-            **params,
-            in_specs=[
-                tiled(3 * tile),                           # int8 [Q1|Q2|Q3]
-                tiled(tile),                               # A1 (bf16)
-                tiled(tile),                               # Ra (bf16)
-                colblk(3 * N2B),                           # int8 Qb levels
-                colblk(N2B),                               # Rb (bf16)
-                colblk(N2B),                               # ab (bf16)
-                pl.BlockSpec((1, 16, tile), lambda b, c, t: (b, 0, t),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 8, N2B), lambda b, c, t: (b, 0, c),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1, 8), lambda b, c, t: (b, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec(
-                    (1, n_tiles, 8, tile), lambda b, c, t: (b, 0, 0, 0),
-                    memory_space=pltpu.VMEM),
-                pl.BlockSpec(
-                    (1, 1, 8, N2B), lambda b, c, t: (b, c, 0, 0),
-                    memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((B, n_tiles, 8, tile), jnp.float32),
-                jax.ShapeDtypeStruct((B, NB, 8, N2B), jnp.float32),
-            ],
-            interpret=interpret,
-        )(q123_t, a1bf_t, rabf_t, qb3, rbbf, abbf, row_pack, col_pack,
-          vox)
-        out = out.transpose(0, 2, 1, 3).reshape(B, 8, N1p)
-        row = lax.broadcasted_iota(jnp.int32, (B, N1p), 1)
-        lo = jnp.where(row < N1, out[:, 0], jnp.inf)[:, :N1]
-        up = jnp.where(row < N1, out[:, 1], jnp.inf)[:, :N1]
-        if not colmin:
-            return lo, up, upf
-        lo_col = jnp.minimum(out2[:, :, 0].reshape(B, N2pb)[:, :N2],
-                             lo_c_sup[:, :N2])
-        return lo, up, upf, lo_col
-
     n_tiles = int(math.ceil(N1 / tile))
     N1p = n_tiles * tile
     if N1p > N1:
@@ -517,8 +229,7 @@ def rowmin_3(A1, A2, a3, y, tile=256, pallas=False, interpret=False,
     d2c, qc, cc = cc_(d2), cc_(q_), cc_(c_)
     d2pc, q2pc, kapcc = cc_(d2p), cc_(q2p), cc_(kap_c)
     invd3e = invd3[:, :, None]                             # (B, 1, 1)
-    # the portable XLA body evaluates its per-tile Grams with the
-    # two-level df_gram_tile (f32 HIGHEST corrections)
+    # per-tile Grams: two-level df_gram_tile, rounded once to f32
     qA1p = dfscan.quantize2(A1h)                           # padded
     qA2 = dfscan.quantize2(A2h)
 
@@ -526,8 +237,7 @@ def rowmin_3(A1, A2, a3, y, tile=256, pallas=False, interpret=False,
         st = t * tile
         qa1_t = tuple(lax.dynamic_slice(x, (0, 0, st), (B, S, tile))
                       for x in qA1p)
-        a = dfscan.df_gram_tile(qa1_t, qA2, A2.shape[2],
-                                precision=lax.Precision.HIGHEST)[0]
+        a = dfscan.df_gram_tile(qa1_t, qA2, A2.shape[2])[0]
         sl = lambda x: lax.dynamic_slice(x, (0, st),
                                          (B, tile))[:, :, None]
         (d1t, invd1t, kap_pt, rho1t, kap_bt, d1pt, invd1pt, kap_ppt,
@@ -569,7 +279,11 @@ def rowmin_3(A1, A2, a3, y, tile=256, pallas=False, interpret=False,
         ws123 = jnp.abs(w1f) + jnp.abs(w2f) + jnp.abs(w3f)
         lo2, up2 = _interval(
             feas123, stabB, rho13t - tB * w2f, ws123 + ws123 * ws123)
-        lo, up = _fold(lo, up, lo2, up2)
+        # the relaxed test admits slightly negative weights, whose LS
+        # residual can undercut the NNLS optimum: such a support lowers
+        # the lower bound only
+        nonneg = (w1f >= 0) & (w2f >= 0) & (w3f >= 0)
+        lo, up = _fold(lo, up, lo2, jnp.where(nonneg, up2, jnp.inf))
 
         rowi = st + lax.broadcasted_iota(jnp.int32, (1, tile, 1), 1)
         lo_c = jnp.min(jnp.where(rowi < N1, lo, jnp.inf), axis=1)
@@ -579,555 +293,27 @@ def rowmin_3(A1, A2, a3, y, tile=256, pallas=False, interpret=False,
         up = jnp.minimum(up, up_rt[:, :, 0])
         return lo, up, lo_c
 
-    los, ups, locs = zip(*[body(t) for t in range(n_tiles)])
-    lo = jnp.concatenate(los, axis=1)
-    up = jnp.concatenate(ups, axis=1)
+    lo, up, lo_col = _scan_tiles(body, n_tiles, lo_c_sup)
     row = lax.broadcasted_iota(jnp.int32, (B, N1p), 1)
     lo = jnp.where(row < N1, lo, jnp.inf)[:, :N1]
     up = jnp.where(row < N1, up, jnp.inf)[:, :N1]
     if not colmin:
         return lo, up, upf
-    lo_col = locs[0]
-    for x in locs[1:]:
-        lo_col = jnp.minimum(lo_col, x)
-    return lo, up, upf, jnp.minimum(lo_col, lo_c_sup)
+    return lo, up, upf, lo_col
 
 
-def _rowmin4_body(a, rowv, colv, voxv, n3, n4):
-    """Shared per-point math of the 4-block f32 interval row pass: one
-    (i1-tile x i2-block) cell given the raw Gram tile ``a`` and the
-    hoisted row/column/voxel chain prefixes (see rowmin_4's packing).
+def _scan_tiles(body, n_tiles, lo_col):
+    """Run ``body(t) -> (lo (B, tile), up (B, tile), lo_c (B, N2))`` over
+    the row tiles as one lax.scan, so that only one tile's (B, tile, N2)
+    temporaries are live at a time and the tile body compiles once.
+    Returns (lo (B, n_tiles * tile), up, min of lo_col and every lo_c)."""
+    def step(lo_col, t):
+        lo, up, lo_c = body(t)
+        return jnp.minimum(lo_col, lo_c), (lo, up)
 
-    Support ENUMERATION, mirroring the one-pass df4 semantics: the NNLS
-    optimum at a point is attained on some support whose unconstrained
-    solution is feasible, so the per-point interval is the fold of the
-    feasibility-cased intervals of every support containing {1, 2}:
-    {1,2}, {1,2,i3} x N3, {1,2,i4} x N4, {1,2,i3,i4} x N3*N4. Supports
-    missing block 2 fold in at row level, supports missing block 1 in
-    the floor (rowmin_4).
-
-    THREE-ZONE pivot guards: the one-pass df4 scan EXCLUDES supports
-    whose pivots fail their 100*eps guards (dfscan ok34/rowok/pointok),
-    so each f32 pivot is classed include (> 2*TOL*diag: full
-    feasibility-cased interval), shell ((0.5..2)*TOL*diag: the df guard
-    could go either way at f32 resolution -> sound [-err, +inf)), or
-    exclude (< 0.5*TOL*diag: pivots never exceed their diagonals, so
-    the df pivot is certainly below its guard -> no contribution).
-    Without the exclude zone every guard-failing point dragged its row
-    into the band (measured: bands of 100-800 rows on noiseless EAR
-    voxels whose U is at the err-radius scale). Borderline f32
-    feasibility flips move between supports whose residuals agree to
-    second order and are absorbed by the err radius (module docstring).
-
-    ``rowv(i)`` -> row vector broadcastable as (..., T, 1), ``colv(i)``
-    -> (..., 1, N2B), ``voxv(i)`` -> scalar/(...,1,1). Layouts, with
-    X ranging over the n3 + n4 single-extra columns (i3 first) and
-    zone flags z* in {0, 0.5, 1}:
-      rows: [invd1, p1] + per X [L1X, invd1pX, kap_ppX, rho1X, zX]
-            + per s [L14, invD1h, kap1, rho1f, zr]
-      cols: [d2, q2] + per X [kap_cX, d2pX, q2pX, cX]
-            + per s [e4c, L24, d2r, q2r]
-      vox:  [w] + per X [uX] + per s [u4, L43, z34]
-    Returns (lo, up) tiles.
-    """
-    TOL = float(100 * 1.1920929e-07)
-    KER = KERR
-    KER4 = KERR4
-    INF = float(np.inf)
-    nx = n3 + n4
-    ns = n3 * n4
-    invd1, p1 = rowv(0), rowv(1)
-    d2c, qc = colv(0), colv(1)
-    w_ = voxv(0)
-
-    def fold(lo, up, z, feas_w, res, err):
-        # z is exactly one of {0, 0.5, 1} (mins of those constants):
-        # include-and-feasible -> interval, shell (z == 0.5) -> sound
-        # [-KER, inf), exclude/infeasible -> no contribution
-        feas = (z > 0.75) & feas_w
-        lo_s = jnp.where(feas, res - err,
-                         jnp.where(z == 0.5, -KER, INF))
-        lo2 = jnp.minimum(lo, lo_s)
-        up2 = jnp.minimum(up, jnp.where(feas, res + err, INF))
-        return lo2, up2
-
-    # support {1,2}
-    pivA = d2c - a * a * invd1
-    zA = jnp.where(pivA > 2 * TOL * d2c, 1.0,
-                   jnp.where(pivA > 0.5 * TOL * d2c, 0.5, 0.0))
-    invA = jnp.where(zA > 0.25, 1.0 / jnp.where(zA > 0.25, pivA, 1.0),
-                     0.0)
-    tA = qc - a * (p1 * invd1)
-    w2 = tA * invA
-    w1 = (p1 - a * w2) * invd1
-    res12 = _sanit(w_ - p1 * (p1 * invd1) - tA * w2)
-    # err radii are consumed only under feasibility (fold), where every
-    # weight is >= 0 — the |w| sums reduce to plain sums (abs-free), and
-    # the sign conjunctions to one min-chain compare
-    s12 = w1 + w2
-    err12 = KER * (1.0 + s12 + s12 * s12)
-    lo = jnp.full_like(a, INF)
-    up = jnp.full_like(a, INF)
-    lo, up = fold(lo, up, zA, jnp.minimum(w1, w2) >= 0, res12, err12)
-
-    # supports {1,2,X}: chain X -> 1 -> 2 (prefixes hoisted)
-    for x in range(nx):
-        L1x, invd1px, kap_ppx, rho1x, zx = (rowv(2 + 5 * x + j)
-                                            for j in range(5))
-        kap_cx, d2px, q2px, cxc = (colv(2 + 4 * x + j) for j in range(4))
-        ux = voxv(1 + x)
-        ap = a - L1x * cxc
-        pivB = d2px - ap * ap * invd1px
-        zB = jnp.minimum(
-            zx, jnp.where(pivB > 2 * TOL * d2c, 1.0,
-                          jnp.where(pivB > 0.5 * TOL * d2c, 0.5, 0.0)))
-        invB = jnp.where(zB > 0.25,
-                         1.0 / jnp.where(zB > 0.25, pivB, 1.0), 0.0)
-        tB = q2px - ap * kap_ppx
-        w2t = tB * invB
-        w1t = kap_ppx - ap * invd1px * w2t
-        w3t = ux - L1x * w1t - kap_cx * w2t
-        res3 = _sanit(rho1x - tB * w2t)
-        err3 = KER * (1.0 + w1t + w2t + w3t)
-        lo, up = fold(lo, up, zB,
-                      jnp.minimum(jnp.minimum(w1t, w2t), w3t) >= 0,
-                      res3, err3)
-
-    # full supports {1, 2, i3, i4}: LDL finish per (i3, i4) pair
-    r0, c0, v0 = 2 + 5 * nx, 2 + 4 * nx, 1 + nx
-    for s in range(ns):
-        i3 = s // n4
-        L13 = rowv(2 + 5 * i3)
-        kap_c3 = colv(2 + 4 * i3)
-        c3c = colv(2 + 4 * i3 + 3)
-        u3 = voxv(1 + i3)
-        L14, invD1h, kap1, rho1f, zr = (rowv(r0 + 5 * s + j)
-                                        for j in range(5))
-        e4c, L24, d2r, q2r = (colv(c0 + 4 * s + j) for j in range(4))
-        u4, L43, z34 = (voxv(v0 + 3 * s + j) for j in range(3))
-        NUM = a - L13 * c3c - L14 * e4c
-        D2h = d2r - NUM * NUM * invD1h
-        zF = jnp.minimum(
-            jnp.minimum(z34, zr),
-            jnp.where(D2h > 2 * TOL * d2c, 1.0,
-                      jnp.where(D2h > 0.5 * TOL * d2c, 0.5, 0.0)))
-        invF = jnp.where(zF > 0.25,
-                         1.0 / jnp.where(zF > 0.25, D2h, 1.0), 0.0)
-        pi2 = q2r - NUM * kap1
-        w2f = pi2 * invF
-        w1f = kap1 - NUM * invD1h * w2f
-        w4f = u4 - L14 * w1f - L24 * w2f
-        w3f = u3 - L43 * w4f - L13 * w1f - kap_c3 * w2f
-        resF = _sanit(rho1f - pi2 * w2f)
-        errF = KER4 * (1.0 + w1f + w2f + w3f + w4f)
-        lo, up = fold(lo, up, zF,
-                      jnp.minimum(jnp.minimum(w1f, w2f),
-                                  jnp.minimum(w3f, w4f)) >= 0,
-                      resF, errF)
-    return lo, up
-
-
-def _rowmin4_kernel(q1ab_ref, a1h_ref, ra_ref, qb_ref, rb_ref, ab_ref,
-                    row_ref, col_ref, vox_ref, out_ref, out2_ref,
-                    *, n1, n2, n2b, n3, n4, nr, tile):
-    """Pallas TPU kernel: one (column-block x i1-tile) cell of the
-    4-block f32 interval row pass. The per-point math is shared with the
-    XLA form (_rowmin4_body) via ref accessors; ``nr`` is the row-pack
-    index of the hoisted row-level lo (up at nr + 1), folded in at the
-    first column block. Grid (B, NB, n_tiles), row tiles innermost (see
-    _rowmin3_kernel); output block (1, n_tiles, 8, T) accumulates the
-    whole voxel: out[t, 0] lo, out[t, 1] up. out2 (1, 1, 8, N2B),
-    revisited across row tiles, accumulates the per-COLUMN lo minima
-    (out2[0, 0] — column-band selection for the df re-scan)."""
-    INF = float(np.inf)
-    cb = pl.program_id(1)
-    t_id = pl.program_id(2)
-    a = _gram_hi(q1ab_ref[0, 0], a1h_ref[0, 0], ra_ref[0, 0],
-                 qb_ref[0, 0], rb_ref[0, 0], ab_ref[0, 0],
-                 tile, n2b)                                 # (T, N2B)
-    rowv = lambda i: row_ref[0, i][:, None]
-    colv = lambda i: col_ref[0, i][None, :]
-    voxv = lambda i: vox_ref[0, 0, i]
-    lo, up = _rowmin4_body(a, rowv, colv, voxv, n3, n4)
-    col = cb * n2b + lax.broadcasted_iota(jnp.int32, a.shape, 1)
-    valid = col < n2
-    lo = jnp.where(valid, lo, INF)
-    up = jnp.where(valid, up, INF)
-    lo_t = jnp.min(lo, axis=1)
-    up_t = jnp.min(up, axis=1)
-    first = cb == 0
-    prev_lo = jnp.where(first, row_ref[0, nr], out_ref[0, t_id, 0])
-    prev_up = jnp.where(first, row_ref[0, nr + 1], out_ref[0, t_id, 1])
-    out_ref[0, t_id, 0] = jnp.minimum(prev_lo, lo_t)
-    out_ref[0, t_id, 1] = jnp.minimum(prev_up, up_t)
-    # padded rows of the last tile carry zero chain prefixes whose
-    # shell-zone contributions (-KER) would poison the column minima
-    rowi = t_id * tile + lax.broadcasted_iota(jnp.int32, lo.shape, 0)
-    lo_c = jnp.min(jnp.where(rowi < n1, lo, INF), axis=0)
-    prev_c = jnp.where(t_id == 0, INF, out2_ref[0, 0, 0])
-    out2_ref[0, 0, 0] = jnp.minimum(prev_c, lo_c)
-
-
-@partial(jax.jit, static_argnames=("tile", "pallas", "interpret",
-                                   "colmin", "ptile", "colcap"))
-def rowmin_4(A1, A2, a3, a4, y, tile=256, pallas=False, interpret=False,
-             colmin=False, ptile=128, colcap=512):
-    """f32 per-row residual intervals for [N1, N2, N3, N4] (EAR config).
-
-    Per (i1, i2) point, the ns = N3*N4 (i3, i4) LDL finishes run off
-    hoisted per-row/per-column/per-voxel chain prefixes (_rowmin4_body);
-    the per-row bound is the min over i2, folded with the row supports
-    {1}, {1,i3}, {1,i4}, {1,i3,i4} (exact df4 case semantics, up only —
-    the per-point unconstrained full-support lo already bounds them).
-    up_floor: block-1-free enumeration.
-    Returns (lo (B, N1), up (B, N1), up_floor (B,)); with
-    ``colmin=True`` additionally the per-COLUMN lower bounds
-    lo_col (B, N2) — the per-point lo reduced over rows, folded with
-    the {2}, {2,i3}, {2,i4}, {2,i3,i4} column-level supports — for
-    column-band pruning of the df re-scan (df4_twopass).
-    """
-    B, S, N1 = A1.shape
-    N2, N3, N4 = A2.shape[2], a3.shape[2], a4.shape[2]
-    if pallas:
-        tile = ptile
-    # EXACT Grams rounded once to f32 (see rowmin_3's prep note: the f32
-    # einsum Grams dominated the whole pass's error budget).
-    if pallas:
-        # fused prep kernel (ops/pallas_prep) — see rowmin_3: one VMEM
-        # pass per rotated block emits kernel operand packs + hoist
-        # Grams, padded (the chains below run at padded widths; padded
-        # rows/columns carry NaN/inf chains that every consumer masks)
-        from . import pallas_prep as pp
-        n_tiles4 = int(math.ceil(N1 / tile))
-        N1p4 = n_tiles4 * tile
-        NB4 = 1
-        N2_128 = int(math.ceil(N2 / 128) * 128)
-        while N2_128 // NB4 > colcap and NB4 < 16:
-            NB4 *= 2
-        N2B4 = int(math.ceil(N2_128 / NB4 / 128) * 128)
-        A3h, _ = mfn._normalize_block(a3)
-        A4h, _ = mfn._normalize_block(a4)
-        yh, _yn, _ys = mfn._normalize_y(y)
-        f32c = lambda x: x.astype(jnp.float32)
-        rhs_cols = ([f32c(yh)] + [f32c(A3h[:, :, i]) for i in range(N3)]
-                    + [f32c(A4h[:, :, i]) for i in range(N4)])
-        rhs_q, rhs_r, rhs_a, q3s = pp.pack_rhs(rhs_cols)
-        A1pz, _n1z = pp.pad_block(A1, tile)
-        A2pz, _n2z = pp.pad_block(A2, N2B4)
-        q123_tp, a1bf_tp, rabf_tp, _a1, gramA = pp.prep_block(
-            A1pz, rhs_q, rhs_r, rhs_a, tile, interpret=interpret,
-            planes="xr")
-        qb3p, _x2, rbbfp, abbfp, gramB = pp.prep_block(
-            A2pz, rhs_q, rhs_r, rhs_a, N2B4, interpret=interpret,
-            planes="ra")
-        d1, p_ = gramA[:, 0], gramA[:, 1]                 # (B, N1p)
-        b3 = jnp.stack([gramA[:, 2 + i] for i in range(N3)], axis=2)
-        b4 = jnp.stack([gramA[:, 2 + N3 + i] for i in range(N4)], axis=2)
-        d2, q_ = gramB[:, 0], gramB[:, 1]                 # (B, N2pb)
-        c3 = jnp.stack([gramB[:, 2 + i] for i in range(N3)], axis=2)
-        c4 = jnp.stack([gramB[:, 2 + N3 + i] for i in range(N4)], axis=2)
-        gs = _gram3_hi
-        qy3, qa3s, qa4s = q3s[0], q3s[1:1 + N3], q3s[1 + N3:]
-        stk = lambda xs, ax: jnp.stack(xs, axis=ax)
-        d3 = stk([gs(q, q, "bs,bs->b") for q in qa3s], 1)   # (B, N3)
-        d4 = stk([gs(q, q, "bs,bs->b") for q in qa4s], 1)
-        r3 = stk([gs(q, qy3, "bs,bs->b") for q in qa3s], 1)
-        r4 = stk([gs(q, qy3, "bs,bs->b") for q in qa4s], 1)
-        g34 = stk([stk([gs(q3c, q4c, "bs,bs->b") for q4c in qa4s], 1)
-                   for q3c in qa3s], 1)                     # (B, N3, N4)
-        w_ = gs(qy3, qy3, "bs,bs->b")
-    else:
-        A1h, _ = mfn._normalize_block(A1)
-        A2h, _ = mfn._normalize_block(A2)
-        A3h, _ = mfn._normalize_block(a3)
-        A4h, _ = mfn._normalize_block(a4)
-        yh, _yn, _ys = mfn._normalize_y(y)
-        f32 = lambda x: x.astype(jnp.float32)
-        A1h, A2h, A3h, A4h, yh = map(f32, (A1h, A2h, A3h, A4h, yh))
-        q3A1, q3A2, q3A3, q3A4, q3y = (dfscan.quantize3(x)
-                                       for x in (A1h, A2h, A3h, A4h, yh))
-        g = _gram3_hi
-        d1 = g(q3A1, q3A1, "bsn,bsn->bn")
-        d2 = g(q3A2, q3A2, "bsn,bsn->bn")
-        d3 = g(q3A3, q3A3, "bsn,bsn->bn")                 # (B, N3)
-        d4 = g(q3A4, q3A4, "bsn,bsn->bn")                 # (B, N4)
-        p_ = g(q3A1, q3y, "bsn,bs->bn")
-        q_ = g(q3A2, q3y, "bsn,bs->bn")
-        r3 = g(q3A3, q3y, "bsn,bs->bn")
-        r4 = g(q3A4, q3y, "bsn,bs->bn")
-        b3 = g(q3A1, q3A3, "bsn,bsm->bnm")                # (B, N1, N3)
-        b4 = g(q3A1, q3A4, "bsn,bsm->bnm")
-        c3 = g(q3A2, q3A3, "bsn,bsm->bnm")
-        c4 = g(q3A2, q3A4, "bsn,bsm->bnm")
-        g34 = g(q3A3, q3A4, "bsn,bsm->bnm")               # (B, N3, N4)
-        w_ = g(q3y, q3y, "bs,bs->b")
-    N1w = d1.shape[1]                                      # N1 or padded
-    N2w = d2.shape[1]
-
-    d3e = d3.reshape(B, 1, N3, 1)
-    d4e = d4.reshape(B, 1, 1, N4)
-    r3e = r3.reshape(B, 1, N3, 1)
-    r4e = r4.reshape(B, 1, 1, N4)
-    ge = g34.reshape(B, 1, N3, N4)
-    w4 = w_.reshape(B, 1, 1, 1)
-
-    # ---- block-1-free floor (upper bounds only) ----
-    upf = w_ + KERR
-    for lo_s, up_s in (_sub1(d3e, r3e, w4), _sub1(d4e, r4e, w4),
-                       _sub2(d3e, d4e, ge, r3e, r4e, w4, _TOL)):
-        upf = jnp.minimum(upf, jnp.min(up_s.reshape(B, -1), axis=1))
-    d2e = d2.reshape(B, N2w, 1, 1)
-    q2e = q_.reshape(B, N2w, 1, 1)
-    c3e = c3.reshape(B, N2w, N3, 1)
-    c4e = c4[:, :, None, :]
-    # per-column lows of the block-1-free, block-2-containing supports
-    # ({2}, {2,i3}, {2,i4}, {2,i3,i4}) — these pin i2, so column-band
-    # selection (colmin) must see them; their up side is the floor
-    lo_c_sup = jnp.full((B, N2w), jnp.inf, jnp.float32)
-    for lo_s, up_s in (_sub1(d2e, q2e, w4),
-                       _sub2(d2e, d3e, c3e, q2e, r3e, w4, _TOL),
-                       _sub2(d2e, d4e, c4e, q2e, r4e, w4, _TOL),
-                       _sub3(d2e, d3e, d4e, c3e, c4e, ge, q2e, r3e, r4e,
-                             w4, _TOL)):
-        upf = jnp.minimum(upf, jnp.min(up_s.reshape(B, -1), axis=1))
-        lo_c_sup = jnp.minimum(lo_c_sup,
-                               jnp.min(lo_s.reshape(B, N2w, -1), axis=2))
-
-    # ---- row-level supports {1}, {1,i3}, {1,i4}, {1,i3,i4} ----
-    we2 = w_[:, None]
-    d1e = d1[:, :, None, None]
-    p1e = p_[:, :, None, None]
-    b3e = b3[:, :, :, None]
-    b4e = b4[:, :, None, :]
-    lo_r, up_r = _sub1(d1, p_, we2)
-    for lo_s, up_s in (_sub2(d1e, d3e, b3e, p1e, r3e, w4, _TOL),
-                       _sub2(d1e, d4e, b4e, p1e, r4e, w4, _TOL),
-                       _sub3(d1e, d3e, d4e, b3e, b4e, ge, p1e, r3e,
-                             r4e, w4, _TOL)):
-        lo_r = jnp.minimum(lo_r, jnp.min(lo_s.reshape(B, N1w, -1), axis=2))
-        up_r = jnp.minimum(up_r, jnp.min(up_s.reshape(B, N1w, -1), axis=2))
-
-    # ---- chain-prefix hoists for the per-point support enumeration ----
-    NS = N3 * N4
-    # voxel-level: eliminate 3 then 4
-    invd3v = 1.0 / jnp.maximum(d3, _EPS)                   # (B, N3)
-    invd4v = 1.0 / jnp.maximum(d4, _EPS)                   # (B, N4)
-    L43 = g34 * invd3v[:, :, None]                         # (B, N3, N4)
-    D4h = d4[:, None, :] - g34 * L43
-    stab34 = D4h > _TOL * d4[:, None, :]
-    invD4h = jnp.where(stab34, 1.0 / jnp.where(stab34, D4h, 1.0), 0.0)
-    t4 = r4[:, None, :] - L43 * r3[:, :, None]
-    rho34 = (w_[:, None, None] - r3[:, :, None] ** 2 * invd3v[:, :, None]
-             - t4 * t4 * invD4h)                           # (B, N3, N4)
-    u3 = r3 * invd3v                                       # (B, N3)
-    u4o = r4 * invd4v                                      # (B, N4)
-    u4 = t4 * invD4h
-
-    # rows: single-extra {1,2,X} chain pieces (X = i3's then i4's)
-    def _x_chain(bX, rX, invdX, Nx):
-        L1x = bX * invdX[:, None, :]                       # (B, N1, Nx)
-        d1px = d1[:, :, None] - bX * L1x
-        stabx = d1px > _EPS * d1[:, :, None]
-        invd1px = jnp.where(stabx, 1.0 / jnp.where(stabx, d1px, 1.0), 0.0)
-        p1x = p_[:, :, None] - L1x * rX[:, None, :]
-        kap_ppx = p1x * invd1px
-        rho1x = (w_[:, None, None]
-                 - rX[:, None, :] ** 2 * invdX[:, None, :]
-                 - p1x * kap_ppx)
-        return L1x, invd1px, kap_ppx, rho1x, stabx
-
-    L13, invd1p3, kap_pp3, rho13, stab3r = _x_chain(b3, r3, invd3v, N3)
-    L14o, invd1p4, kap_pp4, rho14, stab4r = _x_chain(b4, r4, invd4v, N4)
-
-    # rows: per-pair LDL pieces (order 3 -> 4 -> 1 -> 2)
-    e4r = b4[:, :, None, :] - L43[:, None] * b3[:, :, :, None]
-    L14 = e4r * invD4h[:, None]                            # (B, N1, N3, N4)
-    D1h = (d1[:, :, None, None] - b3[:, :, :, None] * L13[:, :, :, None]
-           - e4r * L14)
-    stabr = (stab3r[:, :, :, None]
-             & (D1h > _TOL * d1[:, :, None, None]))
-    invD1h = jnp.where(stabr, 1.0 / jnp.where(stabr, D1h, 1.0), 0.0)
-    pi1 = (p_[:, :, None, None]
-           - L13[:, :, :, None] * r3[:, None, :, None] - L14 * t4[:, None])
-    kap1 = pi1 * invD1h
-    rho1f = rho34[:, None] - pi1 * kap1                    # (B, N1, N3, N4)
-
-    # cols
-    def _x_cols(cX, rX, invdX):
-        kap_cx = cX * invdX[:, None, :]                    # (B, N2, Nx)
-        d2px = d2[:, :, None] - cX * kap_cx
-        q2px = q_[:, :, None] - kap_cx * rX[:, None, :]
-        return kap_cx, d2px, q2px
-
-    kap_c3, d2p3, q2p3 = _x_cols(c3, r3, invd3v)
-    kap_c4, d2p4, q2p4 = _x_cols(c4, r4, invd4v)
-    e4cc = c4[:, :, None, :] - L43[:, None] * c3[:, :, :, None]
-    L24 = e4cc * invD4h[:, None]                           # (B, N2, N3, N4)
-    d2r = (d2[:, :, None, None]
-           - c3[:, :, :, None] * kap_c3[:, :, :, None] - e4cc * L24)
-    q2r = (q_[:, :, None, None]
-           - kap_c3[:, :, :, None] * r3[:, None, :, None] - L24 * t4[:, None])
-
-    fl = jnp.float32
-    rows = [1.0 / d1, p_]
-    for i3 in range(N3):
-        rows += [L13[:, :, i3], invd1p3[:, :, i3], kap_pp3[:, :, i3],
-                 rho13[:, :, i3], stab3r[:, :, i3].astype(fl)]
-    for i4 in range(N4):
-        rows += [L14o[:, :, i4], invd1p4[:, :, i4], kap_pp4[:, :, i4],
-                 rho14[:, :, i4], stab4r[:, :, i4].astype(fl)]
-    for s in range(NS):
-        i3, i4 = divmod(s, N4)
-        rows += [L14[:, :, i3, i4], invD1h[:, :, i3, i4],
-                 kap1[:, :, i3, i4], rho1f[:, :, i3, i4],
-                 stabr[:, :, i3, i4].astype(fl)]
-    cols = [d2, q_]
-    for i3 in range(N3):
-        cols += [kap_c3[:, :, i3], d2p3[:, :, i3], q2p3[:, :, i3],
-                 c3[:, :, i3]]
-    for i4 in range(N4):
-        cols += [kap_c4[:, :, i4], d2p4[:, :, i4], q2p4[:, :, i4],
-                 c4[:, :, i4]]
-    for s in range(NS):
-        i3, i4 = divmod(s, N4)
-        cols += [e4cc[:, :, i3, i4], L24[:, :, i3, i4],
-                 d2r[:, :, i3, i4], q2r[:, :, i3, i4]]
-    vox = [w_]
-    for i3 in range(N3):
-        vox.append(u3[:, i3])
-    for i4 in range(N4):
-        vox.append(u4o[:, i4])
-    for s in range(NS):
-        i3, i4 = divmod(s, N4)
-        vox += [u4[:, i3, i4], L43[:, i3, i4],
-                stab34[:, i3, i4].astype(fl)]
-
-    if pallas:
-        # fused VMEM kernel: same per-point chains, the (T, N2B) support
-        # tiles never touch HBM (the XLA form materializes them — measured
-        # 3x slower than even the one-pass df4 scan). Chain rows already
-        # sit at the prep kernel's padded width.
-        n_tiles, N1p = n_tiles4, N1p4
-        NB, N2B = NB4, N2B4
-        N2pb = NB * N2B
-        nr = len(rows)
-        rows = rows + [lo_r, up_r]
-        NR = int(math.ceil(len(rows) / 8) * 8)
-        row_pack = jnp.stack(rows, axis=1)                 # (B, nr+2, N1p)
-        row_pack = jnp.pad(row_pack,
-                           ((0, 0), (0, NR - len(rows)), (0, 0)))
-        NC = int(math.ceil(len(cols) / 8) * 8)
-        col_pack = jnp.stack(cols, axis=1)                 # (B, nc, N2pb)
-        col_pack = jnp.pad(col_pack, ((0, 0), (0, NC - len(cols)), (0, 0)))
-        NV = int(math.ceil(len(vox) / 8) * 8)
-        vox_pack = jnp.stack(vox, axis=1)[:, None, :]      # (B, 1, nv)
-        vox_pack = jnp.pad(vox_pack,
-                           ((0, 0), (0, 0), (0, NV - len(vox))))
-        # operand packs come straight from the fused prep kernel
-        q123_t, a1bf_t, rabf_t = q123_tp, a1bf_tp, rabf_tp
-        qb3, rbbf, abbf = qb3p, rbbfp, abbfp
-        grid = (B, NB, n_tiles)
-        tiled = lambda d: pl.BlockSpec(
-            (1, 1, S, d), lambda b, c, t: (b, t, 0, 0),
-            memory_space=pltpu.VMEM)
-        colblk = lambda d: pl.BlockSpec(
-            (1, 1, S, d), lambda b, c, t: (b, c, 0, 0),
-            memory_space=pltpu.VMEM)
-        # the support-enumeration body keeps many live (tile, N2B)
-        # temporaries; grant scoped-VMEM headroom beyond the default
-        # 16 MB cap when the cell grows (cf. row_scan_df4)
-        params = (dict(compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024))
-                  if not interpret and tile * N2B > 128 * 256 else {})
-        out, out2 = pl.pallas_call(
-            partial(_rowmin4_kernel, n1=N1, n2=N2, n2b=N2B, n3=N3, n4=N4,
-                    nr=nr, tile=tile),
-            grid=grid,
-            **params,
-            in_specs=[
-                tiled(3 * tile),                           # int8 [Q1|Q2|Q3]
-                tiled(tile),                               # A1 (bf16)
-                tiled(tile),                               # Ra (bf16)
-                colblk(3 * N2B),                           # int8 Qb levels
-                colblk(N2B),                               # Rb (bf16)
-                colblk(N2B),                               # ab (bf16)
-                pl.BlockSpec((1, NR, tile), lambda b, c, t: (b, 0, t),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, NC, N2B), lambda b, c, t: (b, 0, c),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1, NV), lambda b, c, t: (b, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec(
-                    (1, n_tiles, 8, tile), lambda b, c, t: (b, 0, 0, 0),
-                    memory_space=pltpu.VMEM),
-                pl.BlockSpec(
-                    (1, 1, 8, N2B), lambda b, c, t: (b, c, 0, 0),
-                    memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((B, n_tiles, 8, tile), jnp.float32),
-                jax.ShapeDtypeStruct((B, NB, 8, N2B), jnp.float32),
-            ],
-            interpret=interpret,
-        )(q123_t, a1bf_t, rabf_t, qb3, rbbf, abbf, row_pack, col_pack,
-          vox_pack)
-        out = out.transpose(0, 2, 1, 3).reshape(B, 8, N1p)
-        row = lax.broadcasted_iota(jnp.int32, (B, N1p), 1)
-        lo = jnp.where(row < N1, out[:, 0], jnp.inf)[:, :N1]
-        up = jnp.where(row < N1, out[:, 1], jnp.inf)[:, :N1]
-        if not colmin:
-            return lo, up, upf
-        lo_col = jnp.minimum(out2[:, :, 0].reshape(B, N2pb)[:, :N2],
-                             lo_c_sup[:, :N2])
-        return lo, up, upf, lo_col
-
-    # portable XLA body: pad + two-level per-tile Grams (f32 HIGHEST
-    # corrections)
-    n_tiles = int(math.ceil(N1 / tile))
-    N1p = n_tiles * tile
-    padr = lambda x: (jnp.pad(x, ((0, 0), (0, N1p - N1)))
-                      if N1p > N1 else x)
-    padcol = lambda x: (jnp.pad(x, ((0, 0), (0, 0), (0, N1p - N1)))
-                        if N1p > N1 else x)
-    A1p = padcol(A1h)
-    rows = [padr(x) for x in rows]
-    qA1p = dfscan.quantize2(A1p)
-    qA2 = dfscan.quantize2(A2h)
-
-    def body(t):
-        st = t * tile
-        qa1_t = tuple(lax.dynamic_slice(x, (0, 0, st), (B, S, tile))
-                      for x in qA1p)
-        a = dfscan.df_gram_tile(qa1_t, qA2, N2,
-                        precision=lax.Precision.HIGHEST)[0]
-        rowv = lambda i: lax.dynamic_slice(rows[i], (0, st),
-                                           (B, tile))[:, :, None]
-        colv = lambda i: cols[i][:, None, :]
-        voxv = lambda i: vox[i][:, None, None]
-        lo_t, up_t = _rowmin4_body(a, rowv, colv, voxv, N3, N4)
-        # padded rows carry garbage chain prefixes -> mask before the
-        # per-column reduction
-        rowi = st + lax.broadcasted_iota(jnp.int32, (1, tile, 1), 1)
-        lo_m = jnp.where(rowi < N1, lo_t, jnp.inf)
-        return (jnp.min(lo_t, axis=2), jnp.min(up_t, axis=2),
-                jnp.min(lo_m, axis=1))
-
-    los, ups, locs = zip(*[body(t) for t in range(n_tiles)])
-    lo = jnp.concatenate(los, axis=1)
-    up = jnp.concatenate(ups, axis=1)
-    row = lax.broadcasted_iota(jnp.int32, (B, N1p), 1)
-    lo = jnp.where(row < N1, lo, jnp.inf)[:, :N1]
-    up = jnp.where(row < N1, up, jnp.inf)[:, :N1]
-    lo = jnp.minimum(lo, lo_r)
-    up = jnp.minimum(up, up_r)
-    if not colmin:
-        return lo, up, upf
-    lo_col = locs[0]
-    for x in locs[1:]:
-        lo_col = jnp.minimum(lo_col, x)
-    return lo, up, upf, jnp.minimum(lo_col, lo_c_sup)
+    lo_col, (los, ups) = lax.scan(step, lo_col, jnp.arange(n_tiles))
+    flat = lambda x: jnp.moveaxis(x, 0, 1).reshape(x.shape[1], -1)
+    return flat(los), flat(ups), lo_col
 
 
 @partial(jax.jit, static_argnames=("R",))
@@ -1141,8 +327,7 @@ def _select_rows(lo, up, up_floor, R):
     returned rows are sorted by INDEX so the df re-scan's local
     first-minimum tie-breaking coincides with the global reference order.
     Returns (rows (B, R) int32 ascending, ok (B,) bool: False when more
-    than R - 1 rows qualify, oh (B, N, R) f32 scatter one-hot with
-    oh[b, n, r] = [rows[b, r] == n], reusable as a gather matmul)."""
+    than R - 1 rows qualify)."""
     U = jnp.minimum(jnp.min(up, axis=1), up_floor)[:, None]
     return _select_in_band(lo, U, R)
 
@@ -1155,12 +340,11 @@ def _select_in_band(lo, U, R):
 
     A per-index rank (in-band ascending, then out-of-band ascending as
     filler — the permutation a top_k over those keys would produce, at a
-    fraction of its cost) is computed with two cumsums; comparing ranks
-    against the slot iota gives the scatter one-hot directly, and the
-    selected indices fall out of one tiny index @ one-hot matmul.
-    Requires N >= R (callers gate the two-pass on N > 2R).
-    Returns (sel (B, R) int32, ok (B,), oh (B, N, R) f32)."""
-    N = lo.shape[1]
+    fraction of its cost) is computed with two cumsums, and each index
+    is scattered to its rank's slot (ranks are a permutation of 0..N-1,
+    so the first R slots are all filled). Requires N >= R (callers gate
+    the two-pass on N > 2R).
+    Returns (sel (B, R) int32, ok (B,))."""
     in_band = lo <= U
     n_cand = jnp.sum(in_band, axis=1)
     ok = n_cand <= R - 1
@@ -1170,71 +354,47 @@ def _select_in_band(lo, U, R):
     c_oob = jnp.cumsum(1.0 - ibf, axis=1)   # f32 integers below 2^24)
     n_in = c_in[:, -1:]
     rank = jnp.where(ibf > 0, c_in - 1.0, n_in + c_oob - 1.0)
-    r_iota = lax.broadcasted_iota(jnp.float32, (1, 1, R), 2)
-    oh = (rank[:, :, None] == r_iota).astype(jnp.float32)   # (B, N, R)
-    nvec = jnp.broadcast_to(
-        lax.broadcasted_iota(jnp.float32, (1, N), 1), rank.shape)
-    sel = jnp.einsum("bn,bnr->br", nvec, oh,
-                     precision=jax.lax.Precision.HIGHEST)
-    return sel.astype(jnp.int32), ok, oh
+    rank = rank.astype(jnp.int32)
+    vox = lax.broadcasted_iota(jnp.int32, rank.shape, 0)
+    idx = lax.broadcasted_iota(jnp.int32, rank.shape, 1)
+    sel = jnp.zeros((lo.shape[0], R), jnp.int32).at[vox, rank].set(
+        idx, mode="drop", unique_indices=True)
+    return sel, ok
 
 
-def _gather_cols(A, oh):
-    """Gather columns A[b, :, sel[b]] -> (B, S, R) via the selection's
-    scatter one-hot (B, N, R) on the MXU: an XLA gather on the minor
-    (lane) axis was measured 10x slower than this exact-copy matmul.
-    Precision.HIGH (bf16x3) is EXACT here — x * 1.0 sums the three bf16
-    splits of x (8+8+8 >= 24 mantissa bits) and every other product is a
-    true zero — at half the MXU passes of HIGHEST."""
-    return jnp.einsum("bsn,bnr->bsr", A, oh.astype(A.dtype),
-                      preferred_element_type=jnp.float32,
-                      precision=lax.Precision.HIGH)
+def _gather_cols(A, idx):
+    """Gather columns A[b, :, idx[b]] -> (B, S, R): an exact copy."""
+    return jnp.take_along_axis(A, idx[:, None, :], axis=2)
 
 
-@partial(jax.jit, static_argnames=("M", "R", "fused"))
-def df3_twopass(A1, A2, a3, y, M=1, R=128, fused=None):
+@partial(jax.jit, static_argnames=("M", "R"))
+def df3_twopass(A1, A2, a3, y, M=1, R=128):
     """Two-pass exact top-M for [N1, N2, 1]: f32 interval row scan -> df
     re-scan of the top-R rows. Returns (cand (B, M, 2), res (B, M),
     y_sq (B,), ok (B,) bool). Where ``ok`` is False the caller must
     re-solve the voxel over the full grid (the selection guarantee only
-    covers in-budget voxels). ``fused`` selects the Pallas df kernel for
-    the re-scan (default: on for the TPU backend; the XLA scan otherwise
-    — identical selection, exact ties may resolve to a different equal-
-    residual candidate between the two, as between the one-pass paths)."""
+    covers in-budget voxels)."""
     B, S, N1 = A1.shape
     N2 = A2.shape[2]
-    if fused is None:
-        fused = jax.default_backend() == "tpu"
     prune_cols = N2 > R
     if prune_cols:
-        lo, up, up_floor, lo_col = rowmin_3(A1, A2, a3, y,
-                                            pallas=bool(fused),
-                                            colmin=True)
+        lo, up, up_floor, lo_col = rowmin_3(A1, A2, a3, y, colmin=True)
     else:
-        lo, up, up_floor = rowmin_3(A1, A2, a3, y, pallas=bool(fused))
-    rows, ok, oh_r = _select_rows(lo, up, up_floor, R)
-    A1_sel = _gather_cols(A1, oh_r)
+        lo, up, up_floor = rowmin_3(A1, A2, a3, y)
+    rows, ok = _select_rows(lo, up, up_floor, R)
+    A1_sel = _gather_cols(A1, rows)
     if prune_cols:
-        # column-band pruning (same soundness argument as df4_twopass:
-        # the winner's row and column each satisfy lo <= U, index-free
-        # supports resolve to the forced index 0, index-ascending
-        # subsets preserve the first-minimum tie order)
+        # column-band pruning: the winner point's column also satisfies
+        # lo_col <= U; supports that pin neither index resolve to the
+        # forced index 0, and index-ascending subsets preserve the
+        # first-minimum tie order
         U = jnp.minimum(jnp.min(up, axis=1), up_floor)[:, None]
-        cols, ok_c, oh_c = _select_in_band(lo_col, U, R)
+        cols, ok_c = _select_in_band(lo_col, U, R)
         ok = ok & ok_c
-        A2_sel = _gather_cols(A2, oh_c)
-        n2_sel = R
+        A2_sel = _gather_cols(A2, cols)
     else:
         A2_sel = A2
-        n2_sel = N2
-    if fused:
-        from . import pallas_dfscan as pdf
-        rr, ri, y_sq = pdf.row_scan_df3(A1_sel, A2_sel, a3, y)
-        cand, vals = pdf.candidates_from_rows(
-            rr, ri, M, segments=pdf.n_segments(n2_sel))
-    else:
-        cand, vals, y_sq = dfscan.df3_candidates(A1_sel, A2_sel, a3, y,
-                                                 M=M)
+    cand, vals, y_sq = dfscan.df3_candidates(A1_sel, A2_sel, a3, y, M=M)
     # +inf pool entries may carry padded local rows -> clamp before gather
     loc = jnp.clip(cand[:, :, 0], 0, R - 1)
     i1 = jnp.take_along_axis(rows, loc, axis=1)
@@ -1242,64 +402,4 @@ def df3_twopass(A1, A2, a3, y, M=1, R=128, fused=None):
     if prune_cols:
         i2 = jnp.take_along_axis(cols, jnp.clip(i2, 0, R - 1), axis=1)
     cand = jnp.stack([i1, i2], axis=2)
-    return cand, vals, y_sq, ok
-
-
-@partial(jax.jit, static_argnames=("M", "R", "fused"))
-def df4_twopass(A1, A2, a3, a4, y, M=1, R=128, fused=None):
-    """Two-pass exact top-M for [N1, N2, N3, N4] (EAR configuration).
-    Returns (cand (B, M, 4), res (B, M), y_sq (B,), ok (B,)).
-    ``fused`` runs the row pass AND the df re-scan as Pallas kernels
-    (default: on for the TPU backend); the XLA re-scan otherwise —
-    identical selection, exact ties may resolve to a different
-    equal-residual candidate between the two.
-
-    Both grid axes are pruned: the row pass's per-row AND per-column
-    interval lower bounds select the R rows x R columns that can contain
-    the winner, and the df re-scan ranks only that sub-grid. Soundness:
-    the winner point's row and column each satisfy lo <= U; supports
-    that pin neither index ({3},{4},{3,4},empty) resolve to (0, 0) in
-    first-minimum order, and index 0 is forced into both selections.
-    Index-ascending subsets keep the reference (i1, i2, i3, i4)
-    first-minimum tie order. ``ok`` is False when either band overflows
-    its budget (caller re-solves those voxels over the full grid)."""
-    if fused is None:
-        fused = jax.default_backend() == "tpu"
-    N1, N2 = A1.shape[2], A2.shape[2]
-    N3, N4 = a3.shape[2], a4.shape[2]
-    prune_cols = N2 > R
-    if prune_cols:
-        lo, up, up_floor, lo_col = rowmin_4(A1, A2, a3, a4, y,
-                                            pallas=bool(fused),
-                                            colmin=True)
-    else:
-        lo, up, up_floor = rowmin_4(A1, A2, a3, a4, y,
-                                    pallas=bool(fused))
-    rows, ok, oh_r = _select_rows(lo, up, up_floor, R)
-    A1_sel = _gather_cols(A1, oh_r)
-    if prune_cols:
-        U = jnp.minimum(jnp.min(up, axis=1), up_floor)[:, None]
-        cols, ok_c, oh_c = _select_in_band(lo_col, U, R)
-        ok = ok & ok_c
-        A2_sel = _gather_cols(A2, oh_c)
-        n2_sel = R
-    else:
-        A2_sel = A2
-        n2_sel = N2
-    if fused:
-        from . import pallas_dfscan as pdf
-        rr, ri, y_sq = pdf.row_scan_df4(A1_sel, A2_sel, a3, a4, y)
-        cand, vals = pdf.candidates_from_rows_df4(
-            rr, ri, M, N3 * N4, N4, n2_sel,
-            segments_total=pdf.n_segments_df4(n2_sel))
-    else:
-        cand, vals, y_sq = dfscan.df4_candidates(A1_sel, A2_sel, a3, a4,
-                                                 y, M=M)
-    loc = jnp.clip(cand[:, :, 0], 0, R - 1)
-    i1 = jnp.take_along_axis(rows, loc, axis=1)
-    i2 = cand[:, :, 1]
-    if prune_cols:
-        i2 = jnp.take_along_axis(cols, jnp.clip(i2, 0, R - 1), axis=1)
-    cand = jnp.concatenate([i1[:, :, None], i2[:, :, None],
-                            cand[:, :, 2:]], axis=2)
     return cand, vals, y_sq, ok

@@ -6,7 +6,7 @@ dict (mf_utils.py: ``rotate_atom`` 1205-1437, ``interp_PGSE_from_multishell``
 1693-1956, ``init_PGSE_multishell_interp`` 1959-2085). That object graph
 cannot run on an accelerator and is rebuilt per voxel worker.
 
-TPU-first redesign: all data-dependent structure analysis (shell discovery,
+Redesign: all data-dependent structure analysis (shell discovery,
 knot dedup, perpendicular-cluster smoothing, G-shell bracketing) happens ONCE
 on the host at model init, emitting padded, static-shape knot tables
 (xs, ys, cnt). Rotation of a dictionary to a new fascicle direction is then a
@@ -330,8 +330,8 @@ def eval_rotation(xs, ys, cnt, gdir, shell_lo, shell_hi, wG, newdir):
     Replaces the per-voxel ``interp_PGSE_from_multishell`` calls of the
     reference hot loop (mf.py:391-397).
     """
-    # HIGHEST precision: the default TPU matmul runs bf16 passes whose
-    # ~4e-3 dot-product error would swamp the interpolation accuracy
+    # HIGHEST precision: a reduced-precision (bf16 / TF32) matmul's
+    # ~1e-3 dot-product error would swamp the interpolation accuracy
     x = jnp.abs(jnp.einsum('sd,d->s', gdir, newdir,
                            precision=jax.lax.Precision.HIGHEST))
 
@@ -341,14 +341,14 @@ def eval_rotation(xs, ys, cnt, gdir, shell_lo, shell_hi, wG, newdir):
 
 
 def make_grouped_rotation(msinterp, plan):
-    """Build an MXU-based batched rotation evaluator (throughput path).
+    """Build a matmul-based batched rotation evaluator (throughput path).
 
     The gather-based kernel (:func:`eval_rotation`) reads four table rows per
     (sequence, voxel, fascicle) — ~1 GB of scattered row gathers per 64-voxel
-    batch on the flagship workload, which is gather-bandwidth bound on TPU.
+    batch on the flagship workload, which is gather-bandwidth bound.
     This variant regroups target sequences by dense shell ON THE HOST (static
     structure) and evaluates each shell's contribution as a small one-hot
-    lerp-weight matmul W_s (q_s, Kmax) @ ys[s] (Kmax, N) on the MXU, then
+    lerp-weight matmul W_s (q_s, Kmax) @ ys[s] (Kmax, N), then
     reassembles sequences with two static permutations. Identical results to
     eval_rotation up to matmul rounding.
 
@@ -416,8 +416,7 @@ def make_grouped_rotation_paired(msinterp, plan):
 
     :func:`make_grouped_rotation` reassembles its per-shell matmul outputs
     with two inverse-permutation gathers over the full (B*K, Nseq, N)
-    result — measured at ~20 ms of a 68 ms rotation per 512-voxel chunk on
-    v5e (the result is ~1.8 GB). This variant instead groups target
+    result (~1.8 GB per 512-voxel chunk). This variant instead groups target
     sequences by their (shell_lo, shell_hi) PAIR and evaluates each group
     with ONE fused matmul [(1-wG)*W_lo | wG*W_hi] @ [ys[lo]; ys[hi]], so
     the output is simply the concatenation of the groups — no gathers.

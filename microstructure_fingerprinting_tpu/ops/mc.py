@@ -8,7 +8,7 @@ The reference's scalar (seq, spin, dim) Numba triple loop becomes one fused
 device expression: per sequence, gather the mapped reference phase block,
 contract the gradient-scaling over dims, and reduce cos() over spins —
 S_i = mean_l cos(Dscaling * sum_n gscaling[i,n] * phi[l, map(i), n]).
-On TPU this is a (n_seq x n_spin) elementwise cos + row reduction fed by one
+On the device this is a (n_seq x n_spin) elementwise cos + row reduction fed by one
 gather; spins stream through in chunks so arbitrarily large simulations fit
 in memory.
 """

@@ -1,4 +1,4 @@
-"""Exhaustive combinatorial non-negative least squares — TPU-native core.
+"""Exhaustive combinatorial non-negative least squares — the device core.
 
 Solves, for A = [A1, ..., AK] and y:
 
@@ -9,14 +9,14 @@ weight, exhaustively over all combinations. This is the "main function of the
 toolbox" in the reference (mf_utils.py:115-214 and the Numba kernels at
 mf_utils.py:218-607).
 
-TPU-first redesign (not a port):
+Batched redesign (not a port):
   * The reference scans candidates voxel-at-a-time in scalar Numba loops.
-    Here, Gram blocks (A_i^T A_j, A^T y, ||y||^2) are batched MXU matmuls
+    Here, Gram blocks (A_i^T A_j, A^T y, ||y||^2) are batched matmuls
     over a whole voxel batch, and the candidate grid is evaluated branchlessly
-    on the VPU with `where`-composed closed-form 1/2/3/4-variable NNLS
+    elementwise with `where`-composed closed-form 1/2/3/4-variable NNLS
     solutions and a running first-minimum argmin reduction.
   * The N1 x N2 (x N3 x N4) candidate grid is tiled with `lax.scan` so the
-    cross-Gram never materializes in HBM (a VMEM-sized tile at a time),
+    cross-Gram never materializes whole in device memory (a tile at a time),
     mirroring the reference's "never re-form Aw - y" algebra
     (mf_utils.py:355-356).
   * Candidate ordering and tie-breaking reproduce the reference exactly:
@@ -495,12 +495,12 @@ def exhaustive_3_batched(A1, A2, A3, y, tile=_TILE_N1):
 #
 # The real UKBB workload is dicsizes ~ [N, N, 1, 10] (reference mf.py:922-934
 # builds exactly this; its _4up path runs one scipy.optimize.nnls per
-# combination). TPU-native approach: for each fixed pair of small-block
+# combination). Here: for each fixed pair of small-block
 # atoms (i3, i4) — a "sweep", N3*N4 of them — the 4x4 Gram has a constant
 # 2x2 trailing block, so the 15-support NNLS enumeration collapses to a few
 # Schur-complement closed forms with per-row (i1) / per-column (i2)
 # precomputation; the (i1, i2) grid work is ~50 flops per sweep instead of a
-# generic 4x4 Cramer enumeration (~10x less VPU work).
+# generic 4x4 Cramer enumeration (~10x less elementwise work).
 
 def _sub1_res(Y, xp=jnp):
     """Support {a}: unit-diagonal 1-var LS residual; infeasible -> +inf."""
@@ -1024,8 +1024,7 @@ def solve_exhaustive_posweights(A, y, dicsizes, printmsg=None):
     # The public single-problem API solves in float64 ON THE HOST: this is
     # bit-comparable to the reference's float64 Numba kernels (no f32
     # accelerator rounding in the selection) and avoids paying a
-    # host->device->host round trip per call — critical on remote-attached
-    # accelerators. Batched device execution lives in MFModel.fit /
+    # host->device->host round trip per call. Batched device execution lives in MFModel.fit /
     # exhaustive_nnls_blocks.
     return _solve_exhaustive_host(A, y, dicsizes)
 
@@ -1128,7 +1127,7 @@ def solve_exhaustive_posweights_1(A, y):
     """1-sub-dictionary exhaustive NNLS (reference mf_utils.py:218-278
     signature): returns scalars (w, ind_subdic, ind_totdic, min_obj) plus
     y_recons, like the Numba kernel. Solved in float64 on the host, like
-    the dispatcher — under a float32 runtime (TPU, x64 off) a device scan
+    the dispatcher — under a float32 runtime (x64 off) a device scan
     would silently degrade the selection to f32 grade."""
     A = np.asarray(A, dtype=np.float64)
     y = np.asarray(y, dtype=np.float64)

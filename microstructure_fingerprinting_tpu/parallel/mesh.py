@@ -1,9 +1,8 @@
 """Mesh construction and sharded execution of the fingerprinting fit.
 
 The reference parallelizes over voxels with a multiprocessing.Pool
-(mf.py:978-1009), pickling per-voxel dicts across process pipes. The
-TPU-native equivalent: voxels are a batch axis sharded across the device
-mesh with ``jax.sharding`` / ``shard_map``; the dictionary tables are
+(mf.py:978-1009), pickling per-voxel dicts across process pipes. Here
+voxels are a batch axis sharded across the device mesh with ``jax.sharding`` / ``shard_map``; the dictionary tables are
 replicated in HBM (read-only, identical for all voxels); the only collective
 is the implicit output gather — voxels are embarrassingly parallel.
 
@@ -23,10 +22,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.8
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def init_distributed(coordinator_address=None, num_processes=None,
@@ -34,16 +30,14 @@ def init_distributed(coordinator_address=None, num_processes=None,
     """Wire up multi-host execution (jax.distributed) for volume fits.
 
     The reference's only parallelism is single-host multiprocessing
-    (reference mf.py:978-1009). The TPU-native multi-host equivalent:
-    every host runs the same fit script, this initializer connects them
-    into one jax runtime (ICI within a slice, DCN across hosts), and
+    (reference mf.py:978-1009). Multi-host here: every host runs the same
+    fit script, this initializer connects them into one jax runtime, and
     ``build_mesh`` then spans the GLOBAL device set — voxel batches shard
-    across all chips of all hosts with no further code changes (voxels are
-    independent; SURVEY.md section 5 comm-backend plan).
+    across all devices of all hosts with no further code changes (voxels
+    are independent; SURVEY.md section 5 comm-backend plan).
 
-    All arguments are jax.distributed.initialize passthroughs; on TPU pods
-    they are auto-detected from the environment and every argument may be
-    omitted. For CPU/localhost testing pass them explicitly.
+    All arguments are jax.distributed.initialize passthroughs; pass the
+    coordinator address, process count and process id explicitly.
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

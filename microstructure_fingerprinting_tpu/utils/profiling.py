@@ -2,12 +2,14 @@
 
 The reference's only observability is ad-hoc ``time.time()`` deltas printed
 at verbose>=2 (mf.py:624-631, 976, 1030-1032). Here the verbose print
-contract is kept in MFModel.fit, and this module adds the TPU-native layer:
+contract is kept in MFModel.fit, and this module adds the device layer:
 ``jax.profiler`` trace capture around a region and lightweight named stage
 timers that synchronize the device before reading the clock.
 """
 
 import contextlib
+import glob
+import os
 import time
 
 import jax
@@ -25,6 +27,47 @@ def device_trace(log_dir):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def device_op_times(log_dir):
+    """Per-op device time from the newest trace written under ``log_dir``.
+
+    Sums, by name, the durations of the events on each GPU plane's "XLA
+    Ops" line (its "Stream" lines where it has none). Returns
+    ({op name: total ns}, busy ns, window ns): busy is the union of the op
+    intervals, window spans the first op start to the last op end, so
+    1 - busy / window is the device's idle share. A trace without a GPU
+    plane gives ({}, 0, 0).
+    """
+    files = glob.glob(os.path.join(log_dir, "**", "*.xplane.pb"),
+                      recursive=True)
+    if not files:
+        raise FileNotFoundError("no profiler trace under %s" % log_dir)
+    data = jax.profiler.ProfileData.from_file(max(files,
+                                                  key=os.path.getmtime))
+    totals, spans = {}, []
+    for plane in data.planes:
+        if not plane.name.startswith("/device:GPU"):
+            continue
+        lines = list(plane.lines)
+        ops = [ln for ln in lines if ln.name == "XLA Ops"] or [
+            ln for ln in lines if ln.name.startswith("Stream")]
+        for line in ops:
+            for ev in line.events:
+                totals[ev.name] = totals.get(ev.name, 0) + ev.duration_ns
+                spans.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+    if not spans:
+        return totals, 0, 0
+    spans.sort()
+    busy, (cur_lo, cur_hi) = 0, spans[0]
+    for lo, hi in spans[1:]:
+        if lo > cur_hi:
+            busy += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    busy += cur_hi - cur_lo
+    return totals, busy, max(hi for _lo, hi in spans) - spans[0][0]
 
 
 class StageTimer(object):

@@ -41,6 +41,58 @@ def test_df32_error_free_transforms(rng):
     assert np.array_equal(p64, a.astype(np.float64) * b.astype(np.float64))
 
 
+def _df32_case(name, a, b):
+    """The (hi, lo) pair one df32 transform makes of a and b."""
+    import jax.numpy as jnp
+    if name == "two_sum":
+        return df32.two_sum(a, b)
+    if name == "split":
+        return df32.split(a)
+    if name == "two_prod":
+        return df32.two_prod(a, b)
+    if name == "mul_ps":
+        z = jnp.zeros_like(a)
+        return df32.mul_ps(df32.presplit((a, z)), df32.presplit((b, z)))
+    p, _e = df32.two_prod(a, b)
+    return df32.two_sum(p, b)
+
+
+@pytest.mark.parametrize("name", ["two_sum", "split", "two_prod", "mul_ps",
+                                  "two_sum_of_product"])
+def test_df32_exact_inside_scan(rng, name):
+    """The error-free transforms stay exact inside a jitted lax.scan body,
+    where the CPU and GPU compilers contract a product and a following
+    add into one fused multiply-add (two_sum_of_product feeds two_prod's
+    rounded product straight into two_sum)."""
+    import jax
+    import jax.numpy as jnp
+    n = 1 << 14
+    a = np.float32(rng.randn(n) * np.exp(rng.uniform(-8, 8, n)))
+    b = np.float32(rng.randn(n) * np.exp(rng.uniform(-8, 8, n)))
+    step = lambda c, x: (c, _df32_case(name, *x))
+    hi, lo = jax.jit(lambda a, b: jax.lax.scan(
+        step, 0.0, (a.reshape(64, -1), b.reshape(64, -1)))[1])(
+            jnp.asarray(a), jnp.asarray(b))
+    hi = np.asarray(hi, np.float64).ravel()
+    lo = np.asarray(lo, np.float64).ravel()
+    A, B = a.astype(np.float64), b.astype(np.float64)
+    want = {"two_sum": A + B, "split": A, "two_prod": A * B,
+            "mul_ps": A * B,
+            "two_sum_of_product": (a * b).astype(np.float64) + B}[name]
+    assert np.array_equal(hi + lo, want)
+    if name == "split":
+        # both halves fit in 12 significant bits
+        assert not np.any(np.float32(hi).view(np.uint32) & 0xFFF)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["two_sum", "split", "two_prod", "mul_ps",
+                                  "two_sum_of_product"])
+def test_df32_exact_inside_scan_on_gpu(gpu, rng, name):
+    """The same identities as compiled for the card."""
+    test_df32_exact_inside_scan(rng, name)
+
+
 def test_quantize2_exact_decomposition(rng):
     # |X| <= ~0.99: int8 levels unclipped (entries at +-1 degrade R
     # gracefully to ~2^-8 but stay exact; normalized columns sit far below)
@@ -105,30 +157,6 @@ def test_dfscan_matches_oracle(rng, csf):
             "voxel %d: %s vs oracle %s" % (b, tuple(cand[b, 0]), ij)
 
 
-def test_pallas_df3_kernel_matches_xla(rng):
-    """Fused Pallas df3 kernel (interpret mode) == XLA df3 scan, including
-    the column-blocked large-N2 path."""
-    from microstructure_fingerprinting_tpu.ops import pallas_dfscan as pdf
-    pk = pdf
-    for (B, S, N1, N2) in ((3, 40, 70, 60), (2, 24, 140, 600)):
-        A1 = np.float32(rng.randn(B, S, N1))
-        A2 = np.float32(rng.randn(B, S, N2))
-        a3 = np.float32(np.abs(rng.randn(B, S, 1)) + 0.05)
-        y = np.float32(rng.randn(B, S))
-        rr, ri, ysq = pdf.row_scan_df3(jnp.asarray(A1), jnp.asarray(A2),
-                                       jnp.asarray(a3), jnp.asarray(y),
-                                       interpret=True)
-        cand, vals = pk.candidates_from_rows(rr, ri, 4,
-                                             segments=pdf.n_segments(N2))
-        cand0, vals0, _ = dfscan.df3_candidates(
-            jnp.asarray(A1), jnp.asarray(A2), jnp.asarray(a3),
-            jnp.asarray(y), M=4)
-        assert np.all(np.asarray(cand)[:, 0] == np.asarray(cand0)[:, 0])
-        np.testing.assert_allclose(np.asarray(vals)[:, 0],
-                                   np.asarray(vals0)[:, 0],
-                                   rtol=1e-5, atol=1e-7)
-
-
 def test_dfscan_resolves_sub_f32_gaps(rng):
     """Two atom pairs whose residuals differ by ~1e-9 * ||y||^2 — far below
     the plain f32 scan's ~1e-7 resolution — must be ranked correctly."""
@@ -184,11 +212,13 @@ def test_df4_matches_oracle_correlated_ear(rng):
     nearly collinear pairs, exactly the real-dictionary regime. Regression
     for two historical failure modes: (a) the Schur reduction of the
     (csf, ear) block dividing by its near-vanishing determinant (residuals
-    corrupted to ~1e-6 * ||y||^2 -> wrong EAR atoms), and (b) XLA CPU
-    mis-evaluating the compensated chains inside lax.scan sweep bodies
-    (constant ~1e-5 offsets -> wrong (i1, i2) pairs); the sweeps/tiles are
-    now statically unrolled and the 4-support runs a guarded LDL'
-    elimination eliminating the well-conditioned blocks first.
+    corrupted to ~1e-6 * ||y||^2 -> wrong EAR atoms), and (b) the compiler
+    contracting a rounded product into a following add (fused multiply-
+    add) inside the lax.scan sweep bodies, which broke the error-free
+    products (constant ~1e-5 offsets -> wrong (i1, i2) pairs). The
+    4-support runs a guarded LDL' elimination eliminating the
+    well-conditioned blocks first, and ops/df32 keeps every error-free
+    transform exact under contraction.
     """
     B, S, N, E = 3, 60, 14, 4
     t = np.linspace(0, 1.0, S)
@@ -229,7 +259,8 @@ def test_df4_matches_oracle_correlated_ear(rng):
 
 def test_df3_multitile_matches_oracle(rng):
     """Multi-tile (N1 > tile) df3 scan vs oracle — regression for the
-    lax.scan tile-loop mis-evaluation (tiles are now unrolled)."""
+    lax.scan tile-loop mis-evaluation (multiply-add contraction of the
+    error-free products)."""
     B, S, N1, N2 = 2, 40, 40, 12
     A1 = np.float32(rng.randn(B, S, N1))
     A2 = np.float32(rng.randn(B, S, N2))
@@ -263,7 +294,9 @@ def test_df_nnls_cols_matches_f64_host(rng):
                        + 20 * rng.randn(B, S))
         w_d, res_d = dfscan.df_nnls_cols(
             jnp.asarray(cols, jnp.float32), jnp.asarray(y, jnp.float32))
-        w_d, res_d = np.asarray(w_d), np.asarray(res_d)
+        w_d = np.asarray(w_d)
+        res_d = (np.asarray(res_d[0], np.float64)
+                 + np.asarray(res_d[1], np.float64))
         c64, y64 = cols.astype(np.float64), y.astype(np.float64)
         ysq = np.sum(y64 * y64, axis=1)
         G = [[np.einsum("bs,bs->b", c64[:, :, i], c64[:, :, j])

@@ -119,65 +119,6 @@ def test_twopass3_matches_onepass(rng):
     assert any_ok >= 12
 
 
-def test_twopass4_matches_onepass(rng):
-    # shapes match the df4 family (2, 40, 72, 140, 1, 6): the df4
-    # programs are the suite's most expensive compiles — share them
-    A1, A2, a3, y = _rand_problem(rng, B=2, S=40, N1=72, N2=140,
-                                  corr=0.9, positive=True)
-    a4 = np.float32(np.abs(rng.randn(2, 40, 6)) + 0.05)
-    cand, vals, ysq, ok = f32scan.df4_twopass(
-        jnp.asarray(A1), jnp.asarray(A2), jnp.asarray(a3),
-        jnp.asarray(a4), jnp.asarray(y), M=1, R=64)
-    cand0, vals0, _ = dfscan.df4_candidates(
-        jnp.asarray(A1), jnp.asarray(A2), jnp.asarray(a3),
-        jnp.asarray(a4), jnp.asarray(y), M=1)
-    assert np.asarray(ok).all()
-    assert np.all(np.asarray(cand)[:, 0] == np.asarray(cand0)[:, 0])
-    np.testing.assert_allclose(np.asarray(vals)[:, 0],
-                               np.asarray(vals0)[:, 0],
-                               rtol=1e-5, atol=1e-7)
-
-
-def test_rowmin4_pallas_matches_xla(rng):
-    """The fused rowmin_4 kernel (interpret mode) matches the XLA body to
-    Gram-accumulation-order ulps — same chains, same three-zone guards,
-    same row-level folds. (einsum vs dot_general contraction order can
-    differ by ~1 ulp in the f32 cross terms of the exact Gram, so exact
-    bit-parity is not required; interval semantics absorb ulp shifts.)"""
-    A1, A2, a3, y = _rand_problem(rng, B=2, S=36, N1=96, N2=128,
-                                  corr=0.9, positive=True)
-    a4 = np.float32(np.abs(rng.randn(2, 36, 5)) + 0.05)
-    args = tuple(jnp.asarray(x) for x in (A1, A2, a3, a4, y))
-    lo0, up0, upf0 = (np.asarray(v) for v in f32scan.rowmin_4(*args))
-    lo1, up1, upf1 = (np.asarray(v) for v in f32scan.rowmin_4(
-        *args, pallas=True, interpret=True))
-    for x0, x1 in ((lo0, lo1), (up0, up1)):
-        pat = np.isfinite(x0) == np.isfinite(x1)
-        assert pat.mean() > 0.99, "support pattern diverged"
-        m = pat & np.isfinite(x0)
-        np.testing.assert_allclose(x0[m], x1[m], rtol=0, atol=1e-5)
-    np.testing.assert_allclose(upf0, upf1, rtol=0, atol=1e-5)
-
-
-def test_rowmin3_pallas_matches_xla(rng):
-    """The fused rowmin_3 kernel (interpret mode) matches the XLA body
-    within interval semantics (same chains; the kernel's three-level-int8
-    + bf16-corrected Gram differs from the XLA HIGHEST df Gram by ~ulp,
-    absorbed by the KERR radius)."""
-    A1, A2, a3, y = _rand_problem(rng, B=2, S=36, N1=160, N2=96,
-                                  corr=0.9, positive=True)
-    args = tuple(jnp.asarray(x) for x in (A1, A2, a3, y))
-    lo0, up0, upf0 = (np.asarray(v) for v in f32scan.rowmin_3(*args))
-    lo1, up1, upf1 = (np.asarray(v) for v in f32scan.rowmin_3(
-        *args, pallas=True, interpret=True))
-    for x0, x1 in ((lo0, lo1), (up0, up1)):
-        pat = np.isfinite(x0) == np.isfinite(x1)
-        assert pat.mean() > 0.99, "support pattern diverged"
-        m = pat & np.isfinite(x0)
-        np.testing.assert_allclose(x0[m], x1[m], rtol=0, atol=1e-5)
-    np.testing.assert_allclose(upf0, upf1, rtol=0, atol=1e-5)
-
-
 def test_overflow_flag(rng):
     """With R smaller than the number of exact ties, ok must be False."""
     B, S, N2 = 2, 30, 20
@@ -212,168 +153,6 @@ def test_twopass_recovers_planted_atom(rng):
     assert np.all(cand[:, 0, 1] == i2s)
 
 
-def test_row_scan_df4_kernel_matches_onepass(rng):
-    """The fused df4 re-scan kernel (interpret mode) reproduces the XLA
-    one-pass selection exactly: same (i1, i2, i3, i4), same residuals,
-    on the production EAR shape (N3=1 CSF column, N4=10 diffusivities)
-    with N2 large enough to exercise column blocking."""
-    from microstructure_fingerprinting_tpu.ops import pallas_dfscan as pdf
-    B, S, N1, N2, N3, N4 = 2, 40, 72, 140, 1, 6
-    base = np.abs(rng.randn(B, S, 1))
-    mk = lambda n: np.float32(
-        0.9 * base + 0.1 * (np.abs(rng.randn(B, S, n)) + 0.05))
-    A1, A2 = mk(N1), mk(N2)
-    a3 = np.float32(np.abs(rng.randn(B, S, N3)) + 0.05)
-    a4 = np.float32(np.abs(rng.randn(B, S, N4)) + 0.05)
-    y = np.float32(np.abs(rng.randn(B, S)))
-    args = tuple(jnp.asarray(x) for x in (A1, A2, a3, a4, y))
-    rr, ri, ysq = pdf.row_scan_df4(*args, interpret=True)
-    cand, vals = pdf.candidates_from_rows_df4(
-        rr, ri, 1, N3 * N4, N4, N2,
-        segments_total=pdf.n_segments_df4(N2))
-    cand0, vals0, ysq0 = dfscan.df4_candidates(*args, M=1)
-    assert np.all(np.asarray(cand)[:, 0] == np.asarray(cand0)[:, 0])
-    np.testing.assert_allclose(np.asarray(vals)[:, 0],
-                               np.asarray(vals0)[:, 0],
-                               rtol=1e-6, atol=1e-9)
-    np.testing.assert_allclose(np.asarray(ysq), np.asarray(ysq0),
-                               rtol=1e-6)
-
-
-def test_row_scan_df4_tie_order(rng):
-    """Duplicate winning columns: the kernel resolves exact ties to the
-    first (i1, i2, i3, i4) in product order, like dfscan.df4_candidates
-    (reference itertools.product order, mf_utils.py:637)."""
-    from microstructure_fingerprinting_tpu.ops import pallas_dfscan as pdf
-    B, S, N1, N2, N3, N4 = 2, 40, 72, 140, 1, 6
-    A1 = np.float32(np.abs(rng.randn(B, S, N1)) + 0.05)
-    A2 = np.float32(np.abs(rng.randn(B, S, N2)) + 0.05)
-    # plant the same winning column twice in A2 (indices 7 and 90)
-    A2[:, :, 90] = A2[:, :, 7]
-    a3 = np.float32(np.abs(rng.randn(B, S, N3)) + 0.05)
-    a4 = np.float32(np.abs(rng.randn(B, S, N4)) + 0.05)
-    # include an EAR component so i4 is pinned: at w_ear = 0 the ear index
-    # is an arbitrary tie (both implementations report noise-level-equal
-    # sweeps; run_bucket_fast canonicalizes it to 0) and the test is about
-    # the DUPLICATE-i2 tie, not that boundary
-    y = np.stack([0.7 * A1[b, :, 11] + 0.2 * A2[b, :, 7]
-                  + 0.1 * a4[b, :, 2]
-                  for b in range(B)]).astype(np.float32)
-    args = tuple(jnp.asarray(x) for x in (A1, A2, a3, a4, y))
-    rr, ri, _ = pdf.row_scan_df4(*args, interpret=True)
-    cand, vals = pdf.candidates_from_rows_df4(
-        rr, ri, 1, N3 * N4, N4, N2,
-        segments_total=pdf.n_segments_df4(N2))
-    cand0, _v0, _ = dfscan.df4_candidates(*args, M=1)
-    assert np.all(np.asarray(cand)[:, 0] == np.asarray(cand0)[:, 0])
-    assert np.all(np.asarray(cand)[:, 0, 1] == 7)
-
-
-def test_row_scan_df4_kernel_general_n3(rng):
-    """N3 > 1 (beyond the production CSF-single-column shape): the
-    kernel's generic {1,2,X} / sweep enumeration still matches."""
-    from microstructure_fingerprinting_tpu.ops import pallas_dfscan as pdf
-    B, S, N1, N2, N3, N4 = 2, 24, 48, 48, 2, 3
-    A1 = np.float32(np.abs(rng.randn(B, S, N1)) + 0.05)
-    A2 = np.float32(np.abs(rng.randn(B, S, N2)) + 0.05)
-    a3 = np.float32(np.abs(rng.randn(B, S, N3)) + 0.05)
-    a4 = np.float32(np.abs(rng.randn(B, S, N4)) + 0.05)
-    y = np.float32(np.abs(rng.randn(B, S)))
-    args = tuple(jnp.asarray(x) for x in (A1, A2, a3, a4, y))
-    rr, ri, _ = pdf.row_scan_df4(*args, interpret=True)
-    cand, vals = pdf.candidates_from_rows_df4(
-        rr, ri, 1, N3 * N4, N4, N2,
-        segments_total=pdf.n_segments_df4(N2))
-    cand0, vals0, _ = dfscan.df4_candidates(*args, M=1)
-    assert np.all(np.asarray(cand)[:, 0] == np.asarray(cand0)[:, 0])
-    np.testing.assert_allclose(np.asarray(vals)[:, 0],
-                               np.asarray(vals0)[:, 0],
-                               rtol=1e-6, atol=1e-9)
-
-
-def test_twopass4_col_pruning_matches_onepass(rng):
-    """Column pruning active (N2 > R): selection parity with the
-    one-pass oracle on correlated fingerprint-like data, planted-pair
-    recovery, and both-band ok flags."""
-    B, S, N1, N2, N3, N4 = 2, 40, 72, 140, 1, 6
-    base = np.abs(rng.randn(B, S, 1))
-    mk = lambda n: np.float32(
-        0.9 * base + 0.1 * (np.abs(rng.randn(B, S, n)) + 0.05))
-    A1, A2 = mk(N1), mk(N2)
-    a3 = np.float32(np.abs(rng.randn(B, S, N3)) + 0.05)
-    a4 = np.float32(np.abs(rng.randn(B, S, N4)) + 0.05)
-    y = np.float32(np.abs(rng.randn(B, S)))
-    args = tuple(jnp.asarray(x) for x in (A1, A2, a3, a4, y))
-    cand, vals, ysq, ok = f32scan.df4_twopass(*args, M=1, R=64,
-                                              fused=False)
-    cand0, vals0, _ = dfscan.df4_candidates(*args, M=1)
-    ok = np.asarray(ok)
-    assert ok.all()
-    assert np.array_equal(np.asarray(cand)[:, 0], np.asarray(cand0)[:, 0])
-    np.testing.assert_allclose(np.asarray(vals)[:, 0],
-                               np.asarray(vals0)[:, 0],
-                               rtol=1e-5, atol=1e-7)
-    # planted pair: noiseless synthesis recovers (i1*, i2*) through both
-    # pruned bands
-    i1s = rng.randint(0, N1, B)
-    i2s = rng.randint(0, N2, B)
-    yp = np.stack([0.6 * A1[b, :, i1s[b]] + 0.3 * A2[b, :, i2s[b]]
-                   + 0.1 * a3[b, :, 0] for b in range(B)])
-    argsp = args[:4] + (jnp.asarray(yp.astype(np.float32)),)
-    candp, _v, _q, okp = f32scan.df4_twopass(*argsp, M=1, R=64,
-                                             fused=False)
-    assert np.asarray(okp).all()
-    candp = np.asarray(candp)
-    assert np.all(candp[:, 0, 0] == i1s)
-    assert np.all(candp[:, 0, 1] == i2s)
-
-
-def test_twopass4_col_pruning_block1_free_optimum(rng):
-    """Optimum on a {2, ear} support (w1 = 0 boundary): the pruned
-    two-pass must still find an equally-optimal point — same i2/i4 and
-    residual at df resolution; i1 may be any tied representative (the
-    documented boundary-tie caveat)."""
-    # shapes MATCH test_twopass4_col_pruning_matches_onepass exactly so
-    # the compiled df4 programs are reused within the module (they are
-    # the suite's most expensive compiles)
-    B, S, N1, N2, N3, N4 = 2, 40, 72, 140, 1, 6
-    base = np.abs(rng.randn(B, S, 1))
-    mk = lambda n: np.float32(
-        0.9 * base + 0.1 * (np.abs(rng.randn(B, S, n)) + 0.05))
-    A1, A2 = mk(N1), mk(N2)
-    a3 = np.float32(np.abs(rng.randn(B, S, N3)) + 0.05)
-    a4 = np.float32(np.abs(rng.randn(B, S, N4)) + 0.05)
-    y = np.stack([0.7 * A2[b, :, 17] + 0.3 * a4[b, :, 3]
-                  for b in range(B)]).astype(np.float32)
-    args = tuple(jnp.asarray(x) for x in (A1, A2, a3, a4, y))
-    cand, vals, ysq, ok = f32scan.df4_twopass(*args, M=1, R=64,
-                                              fused=False)
-    cand0, vals0, _ = dfscan.df4_candidates(*args, M=1)
-    ok = np.asarray(ok)
-    cand, cand0 = np.asarray(cand), np.asarray(cand0)
-    assert np.all(cand[ok, 0, 1] == cand0[ok, 0, 1])
-    assert np.all(cand[ok, 0, 3] == cand0[ok, 0, 3])
-    dv = np.abs(np.asarray(vals)[ok, 0] - np.asarray(vals0)[ok, 0])
-    assert np.all(dv <= 1e-11 * np.asarray(ysq)[ok])
-
-
-def test_rowmin4_colmin_pallas_matches_xla(rng):
-    """colmin=True: the kernel's per-column minima (interpret mode)
-    match the XLA body within interval semantics."""
-    A1, A2, a3, y = _rand_problem(rng, B=2, S=36, N1=96, N2=128,
-                                  corr=0.9, positive=True)
-    a4 = np.float32(np.abs(rng.randn(2, 36, 5)) + 0.05)
-    args = tuple(jnp.asarray(x) for x in (A1, A2, a3, a4, y))
-    out0 = f32scan.rowmin_4(*args, colmin=True)
-    out1 = f32scan.rowmin_4(*args, pallas=True, interpret=True,
-                            colmin=True)
-    lc0, lc1 = np.asarray(out0[3]), np.asarray(out1[3])
-    pat = np.isfinite(lc0) == np.isfinite(lc1)
-    assert pat.mean() > 0.99, "column support pattern diverged"
-    m = pat & np.isfinite(lc0)
-    np.testing.assert_allclose(lc0[m], lc1[m], rtol=0, atol=1e-5)
-
-
 def test_twopass3_col_pruning_matches_onepass(rng):
     """df3 column pruning active (N2 > R): selection parity with the
     one-pass oracle on correlated fingerprint-like data."""
@@ -385,8 +164,7 @@ def test_twopass3_col_pruning_matches_onepass(rng):
     a3 = np.float32(np.abs(rng.randn(B, S, 1)) + 0.05)
     y = np.float32(np.abs(rng.randn(B, S)))
     args = tuple(jnp.asarray(x) for x in (A1, A2, a3, y))
-    cand, vals, ysq, ok = f32scan.df3_twopass(*args, M=1, R=64,
-                                              fused=False)
+    cand, vals, ysq, ok = f32scan.df3_twopass(*args, M=1, R=64)
     cand0, vals0, _ = dfscan.df3_candidates(*args, M=1)
     ok = np.asarray(ok)
     assert ok.all()
@@ -394,19 +172,3 @@ def test_twopass3_col_pruning_matches_onepass(rng):
     np.testing.assert_allclose(np.asarray(vals)[:, 0],
                                np.asarray(vals0)[:, 0],
                                rtol=1e-5, atol=1e-7)
-
-
-def test_rowmin3_colmin_pallas_matches_xla(rng):
-    """df3 colmin: kernel (interpret) per-column minima match the XLA
-    body within interval semantics."""
-    A1, A2, a3, y = _rand_problem(rng, B=2, S=36, N1=96, N2=128,
-                                  corr=0.9, positive=True)
-    args = tuple(jnp.asarray(x) for x in (A1, A2, a3, y))
-    out0 = f32scan.rowmin_3(*args, colmin=True)
-    out1 = f32scan.rowmin_3(*args, pallas=True, interpret=True,
-                            colmin=True)
-    lc0, lc1 = np.asarray(out0[3]), np.asarray(out1[3])
-    pat = np.isfinite(lc0) == np.isfinite(lc1)
-    assert pat.mean() > 0.99, "column support pattern diverged"
-    m = pat & np.isfinite(lc0)
-    np.testing.assert_allclose(lc0[m], lc1[m], rtol=0, atol=1e-5)

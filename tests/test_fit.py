@@ -47,6 +47,29 @@ def _make_dictionary(n_atoms=48):
     return dic
 
 
+def _synthetic_dictionary(n_atoms=48):
+    """MFModel-ready dictionary dict from the self-contained generators of
+    ``testing`` (no fixture needed): a 40-sequence dense scheme and
+    zeppelin fingerprints, with CSF and EAR compartments."""
+    from microstructure_fingerprinting_tpu import testing as mft
+    sch = mft.make_dense_scheme(n_shells=3, dirs_per_shell=12, n_b0=4)
+    sig, d_par, d_perp = mft.make_dictionary(sch, num_atom=n_atoms)
+    return {
+        "dictionary": sig,
+        "sch_mat": sch,
+        "orientation": np.array([0.0, 0.0, 1.0]),
+        "num_atom": n_atoms,
+        "num_ear": 6,
+        "fasc_propnames": ["d_par", "d_perp"],
+        "d_par": d_par,
+        "d_perp": d_perp,
+        "T2_csf": 2.0,
+        "DIFF_csf": 3.0e-9,
+        "T2_ear": 0.8,
+        "DIFF_ear": np.linspace(0.8e-9, 2.6e-9, 6),
+    }
+
+
 def _synth_volume(dic, rng):
     """Synthesize a small noiseless volume with mixed configurations.
 
@@ -303,7 +326,8 @@ def test_nifti_reads_real_fixtures():
 @pytest.mark.skipif(not UKBB_OK, reason="UKBB fixture unavailable")
 def test_refined_fit_matches_exact(rng):
     """refine=True (f32 scan + f64 host re-score) == refine=False (f64 scan):
-    the precision path used on TPU reproduces exact float64 selection."""
+    the precision path used on the GPU reproduces exact float64
+    selection."""
     dic = _make_dictionary(n_atoms=48)
     data, mask, numfasc, peaks, csf_mask, ear_mask, gt = _synth_volume(
         dic, rng)
@@ -342,8 +366,8 @@ def test_candidates_contain_optimum(rng):
 
 @pytest.mark.skipif(not UKBB_OK, reason="UKBB fixture unavailable")
 def test_pallas_engine_matches_default(rng):
-    """engine='pallas' (fused kernel path, interpret mode on CPU) == the
-    XLA path for the 2-fascicle + CSF configuration."""
+    """engine='fast' (the double-float fast path) == the general XLA
+    path for the 2-fascicle + CSF configuration."""
     dic = _make_dictionary(n_atoms=48)
     sch = dic["sch_mat"]
     shape = (2, 2, 1)
@@ -370,8 +394,8 @@ def test_pallas_engine_matches_default(rng):
     kw = dict(peaks=peaks, pgse_scheme=sch, csf_mask=1, verbose=0,
               batch_size=8, refine=True, topm=8)
     f_x = model.fit(data, np.ones(shape), 2, engine="xla", **kw)
-    f_p = model.fit(data, np.ones(shape), 2, engine="pallas", **kw)
-    # both engines refine exactly in f64, but the pallas pool resolves
+    f_p = model.fit(data, np.ones(shape), 2, engine="fast", **kw)
+    # both engines refine exactly in f64, but the fast pool resolves
     # residual gaps only down to the f32 scan noise (~1e-7 * ||y||^2); on
     # noiseless degenerate data a voxel may resolve to a physically
     # equivalent near-tie. Require equal solution QUALITY at that resolution
@@ -392,7 +416,7 @@ def test_pallas_engine_matches_default(rng):
 @pytest.mark.skipif(not UKBB_OK, reason="UKBB fixture unavailable")
 @pytest.mark.nightly
 def test_pallas_engine_ear_matches_xla(rng):
-    """engine='pallas' == engine='xla' on the full mixed-config volume
+    """engine='fast' == engine='xla' on the full mixed-config volume
     including the 2-fascicle + CSF + EAR bucket (df4 scan path).
 
     nightly: the df4 engine comparison compiles the largest XLA:CPU
@@ -407,7 +431,7 @@ def test_pallas_engine_ear_matches_xla(rng):
               ear_mask=ear_mask, verbose=0, batch_size=8, refine=True,
               topm=8)
     f_x = model.fit(data, mask, numfasc, engine="xla", **kw)
-    f_p = model.fit(data, mask, numfasc, engine="pallas", **kw)
+    f_p = model.fit(data, mask, numfasc, engine="fast", **kw)
     scale = float(np.mean(data ** 2))
     assert np.all(f_p.MSE <= f_x.MSE + 1e-6 * scale)
     same = np.abs(f_p.MSE - f_x.MSE) <= 1e-10 * scale
@@ -472,7 +496,7 @@ def test_grouped_rotation_matches_gather(rng):
 @pytest.mark.skipif(not UKBB_OK, reason="UKBB fixture unavailable")
 @pytest.mark.nightly
 def test_parallel_with_refine(rng):
-    """Sharded fit with float64 refinement == serial refined fit (the TPU
+    """Sharded fit with float64 refinement == serial refined fit (the GPU
     default combination when parallel=True)."""
     dic = _make_dictionary(n_atoms=48)
     data, mask, numfasc, peaks, csf_mask, ear_mask, gt = _synth_volume(
@@ -555,7 +579,7 @@ def test_trivial_bucket_matches_generic(rng):
 
 
 def test_device_finalize_matches_host_refine(rng):
-    """run_bucket_fast with device finalize (the TPU production path:
+    """run_bucket_fast with device finalize (the GPU production path:
     scan winner + ops/dfscan.df_nnls_cols weights/metrics on device, one
     pull per bucket) == the float64 host re-scoring path."""
     from microstructure_fingerprinting_tpu import testing as mft
@@ -596,7 +620,7 @@ def test_fit_noisy_invariant(rng):
     invariant at the solver level)."""
     from microstructure_fingerprinting_tpu import MFModel
     from microstructure_fingerprinting_tpu.ops.noise import gen_SoS_MRI
-    dic = _make_dictionary(n_atoms=48)
+    dic = _synthetic_dictionary(n_atoms=48)
     data, mask, numfasc, peaks, csf_mask, ear_mask, _gt = _synth_volume(
         dic, rng)
     np.random.seed(4242)
@@ -618,9 +642,10 @@ def test_fit_noisy_invariant(rng):
 
 
 def test_twopass_production_graph(rng, monkeypatch):
-    """The TPU production graph — two-pass exact scan (f32 row pass +
+    """The GPU production graph — two-pass exact scan (f32 row pass +
     df re-scan, ops/f32scan) + device finalize — on a dictionary large
-    enough to trigger it, vs the float64 host re-scoring path."""
+    enough to trigger it, and the EAR bucket's one-pass df4 scan with the
+    device finalize, vs the float64 host re-scoring path."""
     import dataclasses
     from microstructure_fingerprinting_tpu import config as cfg
     from microstructure_fingerprinting_tpu import testing as mft
@@ -640,16 +665,8 @@ def test_twopass_production_graph(rng, monkeypatch):
     Dear = np.linspace(0.8e-9, 2.6e-9, 4)
     sig_ear = (np.exp(-TE / 0.8)[:, None]
                * np.exp(-b[:, None] * Dear[None]))
-    # force=True additionally drives the EAR two-pass composition
-    # (rowmin_4 -> row selection -> df4 re-scan -> okf plumbing) that
-    # production gates on the TPU backend (SolverConfig.twopass_ear_mode)
-    for kw, force in (({}, False),
-                      ({"sig_ear": sig_ear, "ear_on": True}, False),
-                      ({"sig_ear": sig_ear, "ear_on": True}, True)):
-        if force:
-            monkeypatch.setitem(cfg.DEFAULTS, "solver", dataclasses.replace(
-                cfg.DEFAULTS["solver"], twopass_rows=16,
-                twopass_ear_mode="always"))
+    # the EAR bucket runs the one-pass df4 scan with the same finalize
+    for kw in ({}, {"sig_ear": sig_ear, "ear_on": True}):
         host = run_bucket_fast(ms, plan, ys_t, peaks, y, csf, 2, True,
                                batch=8, device_finalize=False, **kw)
         dev = run_bucket_fast(ms, plan, ys_t, peaks, y, csf, 2, True,
@@ -749,39 +766,3 @@ def test_k1_fast_path_matches_general(rng):
         assert same > 0.85, "more than tie-level selection divergence"
         # planted-fascicle recovery (noiseless synthesis)
         assert np.mean(host[1][:, 0] == ids) > 0.85
-
-
-def test_mosaic_failure_degrades_to_xla(rng, monkeypatch):
-    """A Mosaic/Pallas compile failure must degrade the bucket to the
-    XLA kernels (same selection) and mark the kernel family unhealthy in
-    the per-fit KernelHealth — never kill the fit. Forced naturally by
-    making the TPU-only gates fire on the CPU backend, where the fused
-    kernels cannot compile."""
-    import dataclasses
-    import jax as jax_mod
-    from microstructure_fingerprinting_tpu import config as cfg
-    from microstructure_fingerprinting_tpu import testing as mft
-    from microstructure_fingerprinting_tpu.models import fit as fit_mod
-    monkeypatch.setitem(cfg.DEFAULTS, "solver", dataclasses.replace(
-        cfg.DEFAULTS["solver"], twopass_rows=16))
-    wl = mft.make_fit_workload(num_atom=72, n_vox=8, n_shells=3,
-                               dirs_per_shell=12, n_b0=4)
-    ms, plan = wl["msinterp"], wl["plan"]
-    _xs, ys_t, _cnt = ms.device_tables()
-    peaks = wl["peaks"].reshape(8, 6)
-    y, csf = wl["y"], wl["sig_csf"]
-    # reference result: the plain XLA path, untouched gates
-    ref = fit_mod.run_bucket_fast(ms, plan, ys_t, peaks, y, csf, 2, True,
-                                  batch=8, device_finalize=True)
-    # pretend we are on TPU so the fused two-pass gate fires; the Pallas
-    # kernel then fails to build on the CPU backend
-    monkeypatch.setattr(fit_mod.jax, "default_backend", lambda: "tpu")
-    health = fit_mod.KernelHealth()
-    with pytest.warns(UserWarning, match="falling back to the XLA"):
-        got = fit_mod.run_bucket_fast(ms, plan, ys_t, peaks, y, csf, 2,
-                                      True, batch=8, device_finalize=True,
-                                      health=health)
-    assert not health.ok["df3"]
-    np.testing.assert_array_equal(got[1], ref[1])
-    np.testing.assert_allclose(got[2], ref[2], rtol=1e-9, atol=1e-12)
-    del jax_mod

@@ -1,13 +1,13 @@
 """Multi-host (multi-process) fit-step test over jax.distributed.
 
 Two localhost processes, 2 virtual CPU devices each, form one 4-device
-global 'data' mesh (the DCN-across-hosts model from SURVEY.md section 5);
+global 'data' mesh (the across-hosts model from SURVEY.md section 5);
 the sharded fused fit step must reproduce the single-process result
 exactly, and the gathered maps land on process 0 (the NIfTI-writing host).
 
 No multi-host hardware claim is made — this validates the wiring
 (parallel/mesh.init_distributed, host_local_to_global, gather_to_host)
-that a TPU pod deployment uses unchanged.
+that a multi-host GPU deployment uses unchanged.
 """
 
 import os

@@ -79,16 +79,16 @@ def test_run_bucket_fast_2d_mesh(rng):
 
 @needs_8
 def test_twopass_sharded_matches_single_device(rng):
-    """The mesh-wrapped two-pass chunk steps (_twopass_sharded: shard_map
-    over 'data' around the fused step) reproduce the single-device steps
-    index-exactly — the round-5 fix for parallel=True silently dropping
-    the two-pass kernels."""
+    """The mesh-wrapped two-pass chunk step (_twopass_sharded: shard_map
+    over 'data' around the fused step) reproduces the single-device step
+    index-exactly — the fix for parallel=True silently dropping the
+    two-pass."""
     import jax.numpy as jnp
     from microstructure_fingerprinting_tpu import testing as mft
     from microstructure_fingerprinting_tpu.models.fit import (
-        _twopass_step3, _twopass_step4, _twopass_sharded)
+        _twopass_step3, _twopass_sharded)
     from microstructure_fingerprinting_tpu.ops import interp as mfi
-    n_vox, E = 8, 3
+    n_vox = 8
     wl = mft.make_fit_workload(num_atom=32, n_vox=n_vox, n_shells=3,
                                dirs_per_shell=12, n_b0=4)
     xs, ys, cnt = wl["msinterp"].device_tables()
@@ -101,29 +101,18 @@ def test_twopass_sharded_matches_single_device(rng):
         jnp.asarray(wl["peaks"], dtype=dt))
     y = jnp.asarray(wl["y"], dtype=dt)
     csf_d = jnp.asarray(wl["sig_csf"], dtype=dt)
-    S = y.shape[1]
-    ear_d = jnp.asarray(
-        np.abs(np.random.RandomState(7).randn(S, E)) + 0.05, dtype=dt)
     R = int(D.shape[3])  # full row budget: every voxel in-band
     for (nd, na) in ((8, 1), (4, 2)):
         m = pmesh.build_mesh(n_data=nd, n_atoms=na)
         D_s = pmesh.shard_batch(m, D)
         y_s = pmesh.shard_batch(m, y)
         csf_r = pmesh.replicate(m, csf_d)
-        ear_r = pmesh.replicate(m, ear_d)
-        ref3 = _twopass_step3(D, csf_d, y, R=R, fused=False)
-        got3 = _twopass_sharded(m, R, False, False)(D_s, csf_r, y_s)
+        ref3 = _twopass_step3(D, csf_d, y, R=R)
+        got3 = _twopass_sharded(m, R)(D_s, csf_r, y_s)
         assert np.asarray(got3[4]).all()
         assert np.array_equal(np.asarray(ref3[0]), np.asarray(got3[0]))
         np.testing.assert_allclose(np.asarray(ref3[2]),
                                    np.asarray(got3[2]),
-                                   rtol=1e-6, atol=1e-9)
-        ref4 = _twopass_step4(D, csf_d, ear_d, y, R=R, fused=False)
-        got4 = _twopass_sharded(m, R, False, True)(D_s, csf_r, ear_r, y_s)
-        assert np.asarray(got4[4]).all()
-        assert np.array_equal(np.asarray(ref4[0]), np.asarray(got4[0]))
-        np.testing.assert_allclose(np.asarray(ref4[2]),
-                                   np.asarray(got4[2]),
                                    rtol=1e-6, atol=1e-9)
 
 
